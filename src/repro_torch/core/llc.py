@@ -1,0 +1,463 @@
+"""Vectorized set-associative shared-LLC engine with bypass paths.
+
+Cache content only couples accesses that map to the *same set*, so the
+epoch's event stream is regrouped into "rounds" -- round r holds the r-th
+access of every set -- and one dense, vectorized transition advances the
+whole [S, W] state per round (gather/compare/one-hot select), instead of a
+serial per-event loop.  ``simulate_epoch`` runs the rounds as a Python loop
+of torch ops on the state's device.  Exactness: per-set event order is
+preserved, so hits/misses/LRU/occupancy are exact.  The only relaxation is
+that global SHIP counter updates within one round are applied as a batch;
+``ref_simulate`` (the serial oracle) pins the exact semantics on
+one-event-per-round inputs.
+
+Every value here is an integer, so the port's state is bitwise the JAX
+package's after every epoch.  The round tick advances on every round of a
+chunk, padded rounds included, exactly as the JAX scan does: LRU stores it.
+
+Bypass semantics (paper Fig. 1 / §V-C):
+* accel write request chosen for bypass  -> direct to DRAM; if the line is
+  present in the LLC, the cached copy is invalidated.
+* accel read: if present, served by the LLC regardless of the bypass
+  decision; on a miss, a bypassed *response* is not filled.
+* core read response bypass: SHIP-predicted-dead fills are not inserted.
+
+Geometry note: the simulator runs a HW_SCALE=8 scaled memory system (1 MB
+LLC standing in for the paper's 8 MB; workload footprints scaled alike).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from . import ship as ship_mod
+from .ship import ShipParams
+
+HW_SCALE = 8  # memory-system scale factor (sizes; rates are unscaled)
+
+# accel bypass modes (static)
+A_NONE = 0   # never bypass accelerator accesses
+A_HINT = 1   # bypass iff per-event hint (LERN clusters x epoch thresholds)
+A_SHIP = 2   # bypass iff SHIP-accel predicts dead
+A_RAND = 3   # hint carries the pre-drawn random decision (AFRp)
+
+# meta bitfield
+M_VALID = 1 << 0
+M_ACCEL = 1 << 1
+M_WRITE = 1 << 2
+M_HINT = 1 << 3
+M_PREFETCH = 1 << 4
+M_DLOK = 1 << 5      # deadline switch already passed for this event
+M_SRC_SHIFT = 8      # bits 8..10: issuing core id
+
+NUM_CORES = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LLCConfig:
+    size_bytes: int = 8 * 1024 * 1024 // HW_SCALE
+    ways: int = 16
+    line_bytes: int = 64
+    tag_cycles: int = 3
+    data_cycles: int = 9
+    # static policy knobs
+    core_bypass: bool = False          # SHIP-driven core response bypass
+    accel_mode: int = A_NONE
+    shared_predictor: bool = False     # CAS: one SHIP table for both agents
+    core_way_mask: int = 0xFFFF        # way partitioning (Fig. 18)
+    accel_way_mask: int = 0xFFFF
+    ship: ShipParams = ship_mod.SHIP_DEFAULT
+    # SHIP sampler sets: observer sets never bypass and are the only sets
+    # that train the SHCT (prevents the bypass death-spiral; standard
+    # set-sampling practice for bypass-capable SHiP variants).
+    sampler_shift: int = 5             # every 32nd set observes
+
+    @property
+    def num_sets(self) -> int:
+        return self.size_bytes // (self.line_bytes * self.ways)
+
+    @property
+    def hit_latency(self) -> int:
+        return self.tag_cycles + self.data_cycles
+
+
+
+
+class LLCState(NamedTuple):
+    tags: torch.Tensor      # int32 [S, W], -1 = invalid
+    lru: torch.Tensor       # int32 [S, W] last-touch tick
+    owner: torch.Tensor     # int32 [S, W] 0 core / 1 accel
+    sig: torch.Tensor       # int32 [S, W] inserting SHIP signature
+    reused: torch.Tensor    # bool  [S, W]
+    tick: torch.Tensor      # int32 [] global round tick
+    shct_core: torch.Tensor   # int32 [T]
+    shct_accel: torch.Tensor  # int32 [T]
+
+
+def init_state(cfg: LLCConfig, device="cuda") -> LLCState:
+    dev = _device.resolve(device)
+    s, w = cfg.num_sets, cfg.ways
+
+    def full(v, dtype=torch.int32):
+        return torch.full((s, w), v, dtype=dtype, device=dev)
+
+    return LLCState(
+        tags=full(-1), lru=full(0), owner=full(0), sig=full(0),
+        reused=full(False, torch.bool),
+        tick=torch.zeros((), dtype=torch.int32, device=dev),
+        shct_core=ship_mod.init_table(cfg.ship, dev),
+        shct_accel=ship_mod.init_table(cfg.ship, dev),
+    )
+
+
+STAT_NAMES = (
+    "core_hits", "core_misses", "core_bypasses",
+    "accel_hits", "accel_misses", "accel_bypasses",
+    "accel_writes_bypassed", "evictions", "prefetch_fills", "invalidations",
+)
+
+ROUND_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def _mask_to_vec(mask: int, w: int) -> np.ndarray:
+    return np.array([(mask >> i) & 1 for i in range(w)], dtype=bool)
+
+
+def build_rounds(cfg: LLCConfig, line: np.ndarray, meta: np.ndarray,
+                 max_rounds: int = ROUND_BUCKETS[-1]):
+    """Regroup an ordered event stream into round-major [R, S] matrices.
+
+    Round r, column s = the r-th event addressed to set s (-1/0 if none).
+    R is padded up to the next bucket so the jitted scan compiles once per
+    bucket.  Hot sets with more than ``max_rounds`` events yield multiple
+    chunks, processed sequentially (per-set order is preserved; cross-set
+    interleaving is immaterial to cache content — see module docstring).
+
+    Yields (line_m, meta_m) chunk pairs."""
+    s_all = (line & (cfg.num_sets - 1)).astype(np.int64)
+    order = np.argsort(s_all, kind="stable")
+    ss = s_all[order]
+    n = line.shape[0]
+    if n == 0:
+        return
+    first = np.empty(n, dtype=bool)
+    first[0] = True
+    first[1:] = ss[1:] != ss[:-1]
+    gid = np.cumsum(first) - 1
+    grp_start = np.flatnonzero(first)
+    rank = np.arange(n) - grp_start[gid]
+    line_o = line[order].astype(np.int32)
+    meta_o = meta[order].astype(np.int32)
+    n_chunks = int(rank.max()) // max_rounds + 1
+    for c in range(n_chunks):
+        m = (rank >= c * max_rounds) & (rank < (c + 1) * max_rounds)
+        rk = rank[m] - c * max_rounds
+        r_needed = int(rk.max()) + 1
+        r_pad = next(b for b in ROUND_BUCKETS if b >= r_needed)
+        line_m = np.full((r_pad, cfg.num_sets), -1, dtype=np.int32)
+        meta_m = np.zeros((r_pad, cfg.num_sets), dtype=np.int32)
+        line_m[rk, ss[m]] = line_o[m]
+        meta_m[rk, ss[m]] = meta_o[m]
+        yield line_m, meta_m
+
+
+class LaneKnobs(NamedTuple):
+    """One lane's policy knobs: the three mode switches as Python values
+    (the round loop branches on them) and the way masks as bool [W]
+    tensors on the state's device."""
+    accel_mode: int
+    core_bypass: bool
+    shared_predictor: bool
+    core_ways: torch.Tensor        # bool [W]
+    accel_ways: torch.Tensor       # bool [W]
+
+
+def _const_knobs(cfg: LLCConfig, device) -> LaneKnobs:
+    w = cfg.ways
+    return LaneKnobs(
+        accel_mode=int(cfg.accel_mode), core_bypass=bool(cfg.core_bypass),
+        shared_predictor=bool(cfg.shared_predictor),
+        core_ways=torch.as_tensor(_mask_to_vec(cfg.core_way_mask, w),
+                                  device=device),
+        accel_ways=torch.as_tensor(_mask_to_vec(cfg.accel_way_mask, w),
+                                   device=device))
+
+
+def _sampler(cfg: LLCConfig, device) -> torch.Tensor:
+    """bool [S]: the SHIP observer (sampler) sets."""
+    return torch.as_tensor(
+        (np.arange(cfg.num_sets) & ((1 << cfg.sampler_shift) - 1)) == 0,
+        device=device)
+
+
+def _gather_way(a: torch.Tensor, way: torch.Tensor) -> torch.Tensor:
+    return a.gather(1, way[:, None])[:, 0]
+
+
+def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
+                     rows, shct, line, meta, tick: int):
+    """THE per-round LLC transition on [C, W] state rows.
+
+    ``rows`` is ``(tags, lru, owner, sig, reused)``; ``shct`` is
+    ``(shct_core, shct_accel)``; ``sampler_j`` is the bool sampler-set
+    mask for the same rows; ``tick`` is the already-advanced round tick.
+    Returns ``(new_rows, new_shct, stat_masks [10, C] bool, hits [C] bool,
+    misses [C] bool, src [C] int64)``: the per-set events each stat and
+    per-core counter counts this round."""
+    tags, lru, owner, sig, reused = rows
+    shct_core0, shct_accel0 = shct
+    w = cfg.ways
+    cmax = cfg.ship.counter_max
+    imax = np.iinfo(np.int32).max
+    dev = tags.device
+    wr = torch.arange(w, dtype=torch.int64, device=dev)
+    accel_ship = knobs.accel_mode == A_SHIP
+    shared = knobs.shared_predictor
+
+    valid = (meta & M_VALID) != 0
+    is_accel = (meta & M_ACCEL) != 0
+    write = (meta & M_WRITE) != 0
+    hint = (meta & M_HINT) != 0
+    prefetch = (meta & M_PREFETCH) != 0
+    dlok = (meta & M_DLOK) != 0
+    src = ((meta >> M_SRC_SHIFT) & 0x7).to(torch.int64)
+
+    hit_vec = (tags == line[:, None]) & (tags != -1)         # [C, W]
+    hit = hit_vec.any(1) & valid
+    way_hit = torch.argmax(hit_vec.to(torch.uint8), 1)
+
+    sig_e = ship_mod.signature(line, cfg.ship)
+    pred_dead_core = shct_core0[sig_e] == 0
+    pred_dead_accel = (shct_core0 if shared else shct_accel0)[sig_e] == 0
+
+    if accel_ship:
+        byp_accel = pred_dead_accel
+    elif knobs.accel_mode == A_NONE:
+        byp_accel = torch.zeros_like(hint)
+    else:
+        byp_accel = hint
+    byp_accel = byp_accel & dlok
+    byp_core = (pred_dead_core if knobs.core_bypass
+                else torch.zeros_like(pred_dead_core))
+    bypass = torch.where(is_accel, byp_accel, byp_core) & valid & ~prefetch
+    # SHIP-driven bypasses never apply in observer (sampler) sets;
+    # LERN/random hints are unaffected (offline predictions).
+    ship_driven = torch.where(is_accel, accel_ship, knobs.core_bypass)
+    bypass = bypass & ~(sampler_j & ship_driven)
+
+    # --- hit path ----------------------------------------------------
+    inval = is_accel & write & bypass & hit
+    served_hit = hit & ~inval
+    # --- miss path -----------------------------------------------------
+    do_insert = (~hit) & (~bypass) & valid
+    allowed = torch.where((is_accel | prefetch)[:, None],
+                          knobs.accel_ways[None, :], knobs.core_ways[None, :])
+    empty = (tags == -1) & allowed
+    has_empty = empty.any(1)
+    first_empty = torch.argmax(empty.to(torch.uint8), 1)
+    victim_lru = torch.argmin(torch.where(allowed, lru, imax), 1)
+    victim = torch.where(has_empty, first_empty, victim_lru)
+    vic_tag = _gather_way(tags, victim)
+    vic_reused = _gather_way(reused, victim)
+    vic_sig = _gather_way(sig, victim)
+    vic_owner = _gather_way(owner, victim)
+    evict_valid = do_insert & ~has_empty & (vic_tag != -1)
+
+    # --- state update (one-hot masks over ways) ------------------------
+    upd_way = torch.where(served_hit, way_hit, victim)
+    onehot = upd_way[:, None] == wr[None, :]                 # [C, W]
+    ins_mask = onehot & do_insert[:, None]
+    inval_mask = (way_hit[:, None] == wr[None, :]) & inval[:, None]
+    touch_mask = onehot & (served_hit | do_insert)[:, None]
+
+    new_tags = torch.where(inval_mask, -1,
+                           torch.where(ins_mask, line[:, None], tags))
+    new_lru = torch.where(touch_mask, tick, lru)
+    new_owner = torch.where(ins_mask, is_accel[:, None].to(torch.int32),
+                            owner)
+    new_sig = torch.where(ins_mask, sig_e[:, None].to(torch.int32), sig)
+    new_reused = torch.where(onehot & (served_hit & ~prefetch)[:, None],
+                             True, torch.where(ins_mask, False, reused))
+
+    # --- SHIP table updates (batched per round; integer adds) -----------
+    hit_sig = _gather_way(sig, way_hit)
+    hit_owner = _gather_way(owner, way_hit)
+    inc = served_hit & ~prefetch & sampler_j
+    dec = evict_valid & ~vic_reused & sampler_j
+    upd_idx = torch.where(inc, hit_sig, vic_sig).to(torch.int64)
+    delta = torch.where(inc, 1, torch.where(dec, -1, 0)).to(torch.int32)
+    own_accel = torch.where(inc, hit_owner, vic_owner) == 1
+    to_accel_tbl = own_accel & (not shared)
+    shct_core = torch.clamp(shct_core0.index_add(
+        0, upd_idx, torch.where(to_accel_tbl, 0, delta)), 0, cmax)
+    shct_accel = torch.clamp(shct_accel0.index_add(
+        0, upd_idx, torch.where(to_accel_tbl, delta, 0)), 0, cmax)
+
+    v = valid & ~prefetch
+    ca = is_accel
+    core_hit = v & ~ca & served_hit
+    core_miss = v & ~ca & ~hit
+    masks = torch.stack([
+        core_hit, core_miss, core_miss & bypass,
+        v & ca & served_hit, v & ca & ~served_hit,
+        v & ca & bypass & ~served_hit,
+        v & ca & write & bypass, evict_valid,
+        valid & prefetch & do_insert, inval,
+    ])
+    return ((new_tags, new_lru, new_owner, new_sig, new_reused),
+            (shct_core, shct_accel), masks, core_hit, core_miss, src)
+
+
+def simulate_epoch(cfg: LLCConfig, state: LLCState, line_m, meta_m,
+                   device="cuda"
+                   ) -> Tuple[LLCState, torch.Tensor, torch.Tensor]:
+    """Run one chunk of an epoch (round-major [R, S] int32 event matrices)
+    through the LLC on ``device``, where ``state`` lives: R rounds of
+    ``round_transition``.
+
+    Returns (state, stats[len(STAT_NAMES)] int32, percore[NUM_CORES, 2]
+    (hits, misses) int32), all on the state's device.  The loop enqueues
+    work only; nothing here waits for the device."""
+    dev = _device.resolve(device)
+    if state.tags.device.type != dev.type:
+        raise ValueError(f"LLC state is on {state.tags.device}, not {dev}")
+    line_m = torch.as_tensor(line_m, device=dev)
+    meta_m = torch.as_tensor(meta_m, device=dev)
+    knobs = _const_knobs(cfg, dev)
+    sampler_j = _sampler(cfg, dev)
+    s = cfg.num_sets
+    rows = (state.tags, state.lru, state.owner, state.sig, state.reused)
+    shct = (state.shct_core, state.shct_accel)
+    counts = torch.zeros((len(STAT_NAMES), s), dtype=torch.int32,
+                         device=dev)
+    percore = torch.zeros((NUM_CORES, 2), dtype=torch.int32, device=dev)
+    tick = state.tick
+    for r in range(line_m.shape[0]):
+        tick = tick + 1
+        rows, shct, masks, ch, cm, src = round_transition(
+            cfg, knobs, sampler_j, rows, shct, line_m[r], meta_m[r], tick)
+        counts += masks
+        percore.index_add_(0, src, torch.stack([ch, cm], 1).to(torch.int32))
+    stats = counts.sum(1, dtype=torch.int32)
+    return LLCState(*rows, tick, *shct), stats, percore
+
+
+def occupancy(state: LLCState) -> Tuple[int, int]:
+    """(core_lines, accel_lines) currently valid (paper Fig. 14), fetched
+    from the device in one copy."""
+    valid = state.tags != -1
+    accel = valid & (state.owner == 1)
+    counts = torch.stack([(valid & ~accel).sum(), accel.sum()]).cpu()
+    return (int(counts[0]), int(counts[1]))
+
+
+def pack_meta(is_accel, write, hint, prefetch, dlok, src) -> np.ndarray:
+    """Build the meta bitfield for build_rounds (all inputs bool/int arrays)."""
+    return (M_VALID
+            | np.where(is_accel, M_ACCEL, 0)
+            | np.where(write, M_WRITE, 0)
+            | np.where(hint, M_HINT, 0)
+            | np.where(prefetch, M_PREFETCH, 0)
+            | np.where(dlok, M_DLOK, 0)
+            | (np.asarray(src, np.int32) << M_SRC_SHIFT)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Pure-Python reference (oracle for tests) — same semantics, serial.
+# events: iterable of (line, is_accel, write, hint, prefetch, valid, src)
+# ---------------------------------------------------------------------------
+def ref_simulate(cfg: LLCConfig, events, accel_switch_point: int = -1,
+                 shct_core=None, shct_accel=None) -> Dict[str, int]:
+    S, W = cfg.num_sets, cfg.ways
+    tags = [[-1] * W for _ in range(S)]
+    lru = [[0] * W for _ in range(S)]
+    owner = [[0] * W for _ in range(S)]
+    sig = [[0] * W for _ in range(S)]
+    reused = [[False] * W for _ in range(S)]
+    tick = 0
+    cmax = cfg.ship.counter_max
+    tc = [cfg.ship.init_value] * cfg.ship.entries if shct_core is None else shct_core
+    ta = tc if cfg.shared_predictor else (
+        [cfg.ship.init_value] * cfg.ship.entries if shct_accel is None else shct_accel)
+    core_ways = _mask_to_vec(cfg.core_way_mask, W)
+    accel_ways = _mask_to_vec(cfg.accel_way_mask, W)
+    stats = {k: 0 for k in STAT_NAMES}
+    accel_seen = 0
+
+    for (line, is_accel, write, hint, prefetch, valid, *_src) in events:
+        if not valid:
+            continue
+        s = line & (S - 1)
+        is_sampler = (s & ((1 << cfg.sampler_shift) - 1)) == 0
+        hit_way = next((i for i in range(W) if tags[s][i] == line), -1)
+        hit = hit_way >= 0
+        sg = int(ship_mod.signature_np(np.array([line]), cfg.ship)[0])
+        if is_accel:
+            accel_seen += 1
+        deadline_ok = accel_seen > accel_switch_point
+        if is_accel:
+            if cfg.accel_mode == A_NONE:
+                byp = False
+            elif cfg.accel_mode in (A_HINT, A_RAND):
+                byp = bool(hint)
+            else:
+                byp = ta[sg] == 0 and not is_sampler
+            byp = byp and deadline_ok
+        else:
+            byp = cfg.core_bypass and tc[sg] == 0 and not is_sampler
+        if prefetch:
+            byp = False
+
+        tick += 1
+        inval = is_accel and write and byp and hit
+        if hit and not inval:
+            lru[s][hit_way] = tick
+            if not prefetch:
+                if is_sampler:
+                    t = tc if (owner[s][hit_way] == 0 or cfg.shared_predictor) else ta
+                    t[sig[s][hit_way]] = min(t[sig[s][hit_way]] + 1, cmax)
+                reused[s][hit_way] = True
+                if is_accel:
+                    stats["accel_hits"] += 1
+                else:
+                    stats["core_hits"] += 1
+            continue
+        if inval:
+            tags[s][hit_way] = -1
+            stats["invalidations"] += 1
+        if not prefetch:
+            if is_accel:
+                stats["accel_misses"] += 1
+                if byp:
+                    stats["accel_bypasses"] += 1
+                    if write:
+                        stats["accel_writes_bypassed"] += 1
+            else:
+                stats["core_misses"] += 1
+                if byp:
+                    stats["core_bypasses"] += 1
+        if byp:
+            continue
+        allowed = accel_ways if (is_accel or prefetch) else core_ways
+        empties = [i for i in range(W) if tags[s][i] == -1 and allowed[i]]
+        if empties:
+            v = empties[0]
+        else:
+            v = min((i for i in range(W) if allowed[i]), key=lambda i: lru[s][i])
+            if tags[s][v] != -1:
+                stats["evictions"] += 1
+                if not reused[s][v] and is_sampler:
+                    t = tc if (owner[s][v] == 0 or cfg.shared_predictor) else ta
+                    t[sig[s][v]] = max(t[sig[s][v]] - 1, 0)
+        tags[s][v] = line
+        lru[s][v] = tick
+        owner[s][v] = 1 if is_accel else 0
+        sig[s][v] = sg
+        reused[s][v] = False
+        if prefetch:
+            stats["prefetch_fills"] += 1
+    return stats

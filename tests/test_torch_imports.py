@@ -1,0 +1,51 @@
+"""The port stands alone: no module under src/repro_torch/ and not
+chip_smoke.py imports JAX or the JAX package (checked on the syntax tree,
+so an import inside a function counts too)."""
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _sources():
+    """chip_smoke.py, then every port module in a fixed (sorted) order."""
+    mods = [os.path.join(d, f) for d, _, files in os.walk(PORT)
+            for f in files if f.endswith(".py")]
+    return [os.path.join(ROOT, "chip_smoke.py")] + sorted(mods)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "import_module", "__import__"):
+            args = [a.value for a in node.args
+                    if isinstance(a, ast.Constant) and isinstance(a.value,
+                                                                  str)]
+            bad += [a for a in args if _forbidden(a)]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_every_port_module_is_checked():
+    names = {os.path.relpath(p, PORT) for p in _sources()[1:]}
+    for must in ("core/sim.py", "core/kmeans.py", "kernels/_build.py",
+                 "kernels/ri_histogram/kernel.py", "convert.py"):
+        assert must in names
