@@ -6,14 +6,23 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's kernels from the checkout's sources, holds each
-kernel against its plain PyTorch version on the card, drives the port's
-main path -- one paper data point, ``config3``/``moti2`` at the ``full``
-preset: the calibrated deadline, then ``hydra`` and ``arp-cs-as-d``
-through ``load_artifacts`` -> ``Lane(device="cuda")`` -> ``drive_lane`` --
-and holds the results to the JAX reference's numbers in
-``src/repro_torch/golden/config3_moti2_full.json`` and to the paper's
-orderings.  Every phase raises on failure.  Without CUDA, or without the
-rest of the repository, it exits non-zero and prints no result.
+kernel against its plain PyTorch version on the card, and drives the
+port's two paths at full size, each with the kernels' launch counts set to
+0 just before and read just after:
+
+* phase 4, one paper data point, ``config3``/``moti2`` at the ``full``
+  preset: the calibrated deadline, then ``hydra`` and ``arp-cs-as-d``
+  through ``load_artifacts`` -> ``Lane(device="cuda")`` -> ``drive_lane``,
+  held to ``src/repro_torch/golden/config3_moti2_full.json``;
+* phase 6, the ``tests/test_system.py`` spec (six policies on the same
+  cell) through ``exp.run`` with ``ExecPlan(engine="host",
+  fit_engine="bucketed")`` from an empty cache, held to
+  ``src/repro_torch/golden/config3_moti2_full_system.json`` and the
+  paper's orderings, then served again wholly from the cache; phase 7,
+  the bucketed engine's LERN prediction accuracy on ``config7``.
+
+Every phase raises on failure.  Without CUDA, or without the rest of the
+repository, it exits non-zero and prints no result.
 
 The second-to-last lines of standard output are a JSON object of per-kernel
 numbers and the card's name and power limit; the last line is
@@ -22,6 +31,7 @@ numbers and the card's name and power limit; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -29,8 +39,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "src", "repro_torch", "golden",
-                      "config3_moti2_full.json")
+GOLDEN_DIR = os.path.join(ROOT, "src", "repro_torch", "golden")
+GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
+SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
 CONFIG, MIX = "config3", "moti2"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
@@ -69,16 +80,19 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 class Capture:
     """Wraps a kernel wrapper where the port calls it, keeping a copy of
-    the first call's inputs; the wrapper's own launch count is untouched."""
+    the first call's inputs (or, with ``largest``, of the call with the
+    largest first input); the wrapper's own launch count is untouched."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, largest: bool = False):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args = None
+        self.largest = largest
         setattr(module, name, self)
 
     def __call__(self, *args):
-        if self.args is None:
+        if self.args is None or (self.largest and args[0].numel()
+                                 > self.args[0].numel()):
             self.args = tuple(a.clone() for a in args)
         return self.fn(*args)
 
@@ -99,12 +113,13 @@ class Capture:
 class Timed:
     """Wraps a function where the port calls it and adds up the host
     seconds spent in it (for work that ends in a device sync, or that is
-    launch-bound, that is its wall time) and its calls."""
+    launch-bound, that is its wall time), its calls and, for the LLC
+    round loops, the rounds and lane-rounds they ran."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.seconds, self.calls, self.rounds = 0.0, 0, 0
+        self.seconds, self.calls, self.rounds, self.lane_rounds = 0.0, 0, 0, 0
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
@@ -116,6 +131,10 @@ class Timed:
             self.calls += 1
             if self.name == "simulate_epoch":
                 self.rounds += args[2].shape[0]
+                self.lane_rounds += args[2].shape[0]
+            elif self.name == "simulate_epoch_lanes":
+                self.rounds += args[3].shape[1]
+                self.lane_rounds += args[3].shape[0] * args[3].shape[1]
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
@@ -163,6 +182,32 @@ def check_assign(kops, x, centers, seg, what: str) -> int:
     return int((a1 - a2)[valid].abs().max()) if bool(valid.any()) else 0
 
 
+def dense_case(n, d, k, dtype, rng, dev, batch=None):
+    """tests/test_kernels.py's dense inputs: well-separated clusters, in
+    f32 or bf16; with ``batch``, a leading batch axis."""
+    import torch
+    shape = () if batch is None else (batch,)
+    centers = torch.as_tensor(rng.normal(size=shape + (k, d)) * 10,
+                              dtype=torch.float32)
+    pick = torch.as_tensor(rng.integers(0, k, shape + (n,)))
+    x = (torch.gather(centers, -2, pick[..., None].expand(*pick.shape, d))
+         + torch.as_tensor(rng.normal(size=shape + (n, d)) * 0.01,
+                           dtype=torch.float32))
+    return x.to(dtype).to(dev), centers.to(dtype).to(dev)
+
+
+def check_dense(kops, x, centers, what: str) -> int:
+    import torch
+    a1 = kops.assign(x, centers)
+    a2 = kops.assign_plain(x, centers)
+    torch.cuda.synchronize()
+    bad = int((a1 != a2).sum())
+    if bad:
+        raise AssertionError(f"kmeans_assign kernel != plain on {bad} rows "
+                             f"({what})")
+    return int((a1 - a2).abs().max())
+
+
 def close(a: float, b: float) -> bool:
     return abs(a - b) <= RTOL * abs(b)
 
@@ -190,12 +235,61 @@ def check_point(name, res, want) -> None:
     log(f"  {name}: matches golden (bitwise: {got == want})")
 
 
+def system_point(res) -> dict:
+    """One SimResult in the system golden file's form (the history as
+    [length, exact sum, min, max] per series)."""
+    return {"summary": res.summary(), "epochs": res.epochs,
+            "llc_accesses": res.llc_accesses,
+            "dram_accesses": res.dram_accesses,
+            "completion_cycles": list(res.completion_cycles),
+            "core_hit_rate": res.core_hit_rate,
+            "accel_hit_rate": res.accel_hit_rate,
+            "deadline_cycles": res.deadline_cycles,
+            "history": {k: [len(v), math.fsum(v), min(v, default=0.0),
+                            max(v, default=0.0)]
+                        for k, v in sorted(res.history.items())}}
+
+
+def compare(got, want, where: str) -> None:
+    """Integers (and bools) equal, floats within RTOL, structures alike."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{where}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for k in want:
+            compare(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: length {len(got)} != "
+                                 f"{len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            compare(g, w, f"{where}[{i}]")
+    elif isinstance(want, float):
+        if not close(float(got), want):
+            raise AssertionError(f"{where}: {got!r} != golden {want!r} "
+                                 f"(rtol {RTOL})")
+    elif got != want:
+        raise AssertionError(f"{where}: {got!r} != golden {want!r}")
+
+
+def kernel_row(name, route, source, replaces, launches, err, ms, plain_ms,
+               n_bytes, n_ops, library_ms, shape) -> dict:
+    bound_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = n_ops / FP32_FLOPS * 1e3
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": library_ms, "shape": shape}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not os.path.exists(GOLDEN):
+    if not (os.path.exists(GOLDEN) and os.path.exists(SYSTEM)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -205,7 +299,8 @@ def main() -> int:
     os.environ["REPRO_CACHE"] = cache
 
     import numpy as np
-    from repro_torch.core import lern, policies, sim
+    from repro_torch import exp
+    from repro_torch.core import lern, llc, policies, sim
     from repro_torch.core.dram import default_model
     from repro_torch.kernels import _build
     from repro_torch.kernels.kmeans_assign import ops as kops
@@ -215,13 +310,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    t_script = time.time()
 
     # 1. the device
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"count {torch.cuda.device_count()} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # 2. the kernel build
+    # 2. the kernel build (one nvcc per source, all started together)
     t0 = time.time()
     reports = _build.build()
     for name, rep in reports.items():
@@ -247,15 +343,25 @@ def main() -> int:
                      f"sizes={sizes} d={d} k={k}")
     log("[assign_segmented] kernel == plain (argmin) on the test_kernels "
         "cases")
+    rng = np.random.default_rng(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d, k in ((64, 4, 4), (777, 4, 4), (2048, 8, 6), (100, 1, 3),
+                        (4096, 16, 4)):
+            check_dense(kops, *dense_case(n, d, k, dtype, rng, dev),
+                        f"n={n} d={d} k={k} {dtype}")
+        check_dense(kops, *dense_case(777, 4, 4, dtype, rng, dev, batch=3),
+                    f"batched [3, 777, 4] {dtype}")
+    log("[kmeans_assign] kernel == plain (argmin) on the test_kernels cases "
+        "in f32 and bf16 and a batched case")
 
-    # 4. the main path at full size
+    # 4. the main path of the first slice: one data point at full size
     golden = json.load(open(GOLDEN))
     p = sim.SimParams(**golden["params"])
     dram = default_model()
     hist, assign = hops.histogram, kops.assign_segmented
     cap_h = Capture(hops, "histogram")
     cap_a = Capture(kops, "assign_segmented")
-    t_llc = Timed(sim.llc_mod, "simulate_epoch")
+    t_llc = Timed(llc, "simulate_epoch")
     t_lern = Timed(sim, "train_model_batched")
     hist.launches = 0
     assign.launches = 0
@@ -301,7 +407,114 @@ def main() -> int:
     log("[main] orderings hold: hydra.dmr == 0, hydra.ipc > "
         "arp-cs-as-d.ipc, hydra.accel_br > arp-cs-as-d.accel_br")
 
-    # 3b. the kernels at the main path's shapes
+    # 6. the second slice's path: the test_system spec through exp.run
+    system = json.load(open(SYSTEM))
+    os.environ["REPRO_CACHE"] = cache + "_system"
+    shutil.rmtree(os.environ["REPRO_CACHE"], ignore_errors=True)
+    spec = exp.ExperimentSpec.grid(config=system["config"],
+                                   mix=system["mix"],
+                                   policy=system["policies"], params="full")
+    if exp.PARAMS.get("full") != sim.SimParams(**system["params"]):
+        raise AssertionError("the full preset differs from the golden's")
+    plan = exp.ExecPlan(**system["plan"])
+    dense = kops.assign
+    cap_d = Capture(kops, "assign", largest=True)
+    t_lanes = Timed(llc, "simulate_epoch_lanes")
+    t_llc = Timed(llc, "simulate_epoch")
+    t_fit = [Timed(sim, "train_model_batched"),
+             Timed(sim, "train_family_batched")]
+    hist.launches = assign.launches = dense.launches = 0
+    t0 = time.time()
+    rs = exp.run(spec, plan=plan, device=dev)
+    torch.cuda.synchronize()
+    wall_sys = time.time() - t0
+    sys_launches = {"ri_histogram": hist.launches,
+                    "kmeans_assign": dense.launches,
+                    "kmeans_assign_segmented": assign.launches}
+    for hook in (cap_d, t_lanes, t_llc, *t_fit):
+        hook.restore()
+    llc_s = t_lanes.seconds + t_llc.seconds
+    fit_s = sum(t.seconds for t in t_fit)
+    rounds = t_lanes.rounds + t_llc.rounds
+    lane_rounds = t_lanes.lane_rounds + t_llc.lane_rounds
+    log(f"[system] exp.run of {len(spec)} points wall {wall_sys:.1f} s, "
+        f"launches {sys_launches}; LLC round loop {llc_s:.1f} s "
+        f"({t_lanes.calls} lane-batched chunks of {t_lanes.rounds} rounds "
+        f"and {t_lanes.lane_rounds} lane-rounds, "
+        f"{t_lanes.seconds / max(t_lanes.rounds, 1) * 1e3:.3f} ms a round; "
+        f"{t_llc.calls} one-lane chunks of {t_llc.rounds} rounds, "
+        f"{t_llc.seconds / max(t_llc.rounds, 1) * 1e3:.3f} ms a round; "
+        f"{llc_s / max(lane_rounds, 1) * 1e3:.3f} ms a lane-round over "
+        f"{rounds} rounds); LERN fit {fit_s:.2f} s "
+        f"({sum(t.calls for t in t_fit)} fits); host loop and waits "
+        f"{wall_sys - llc_s - fit_s:.1f} s")
+    if dense.launches <= 0 or hist.launches <= 0:
+        raise AssertionError(f"the exp.run path did not launch every kernel "
+                             f"of its fit: {sys_launches}")
+    got = {row["policy"]: row["result"] for row in rs.to_rows()}
+    for name, want in system["points"].items():
+        compare(json.loads(json.dumps(system_point(got[name]))), want,
+                f"system.{name}")
+    log(f"[system] all {len(got)} points match the golden (bitwise: "
+        f"{json.loads(json.dumps({k: system_point(v) for k, v in got.items()})) == system['points']})")
+    for name, want in golden["points"].items():
+        check_point(f"segmented golden {name}", got[name], want)
+    r = got
+    orderings = {
+        "arp-nb and hydra meet the deadline":
+            r["arp-nb"].dmr == 0.0 and r["hydra"].dmr == 0.0,
+        "arp-cs-as-d dmr <= arp-cs-as dmr":
+            r["arp-cs-as-d"].dmr <= r["arp-cs-as"].dmr,
+        "arp-cs-as-d accel_br <= arp-cs-as accel_br":
+            r["arp-cs-as-d"].accel_br <= r["arp-cs-as"].accel_br,
+        "hydra beats arp-cs-as-d (dmr <=, ipc >)":
+            r["hydra"].dmr <= r["arp-cs-as-d"].dmr
+            and r["hydra"].ipc_total > r["arp-cs-as-d"].ipc_total,
+        "hydra accel_br > arp-cs-as-d accel_br":
+            r["hydra"].accel_br > r["arp-cs-as-d"].accel_br,
+        "hydra core hit rate > arp-nb core hit rate":
+            r["hydra"].core_hit_rate > r["arp-nb"].core_hit_rate,
+    }
+    h = r["hydra"].history
+    orderings["hydra history recorded, thresholds move"] = (
+        len(h["accel_rate"]) == r["hydra"].epochs
+        and max(h["accel_rate"]) > 0
+        and any(t != h["ri_th"][0] for t in h["ri_th"]))
+    failed = [k for k, ok in orderings.items() if not ok]
+    if failed:
+        raise AssertionError(f"test_system orderings fail: {failed}")
+    log(f"[system] orderings hold: {'; '.join(orderings)}")
+    t0 = time.time()
+    rs2 = exp.run(spec, plan=plan, device=dev)
+    by_source = rs2.run_report.summary()["by_source"]
+    if by_source != {"cache": len(spec)} or any(
+            system_point(a) != system_point(b)
+            for a, b in zip(rs2.results(), rs.results())):
+        raise AssertionError(f"second exp.run not served wholly from the "
+                             f"cache: {by_source}")
+    log(f"[system] second exp.run served from the cache in "
+        f"{time.time() - t0:.2f} s: {by_source}")
+
+    # 7. LERN prediction accuracy on config7 under the bucketed engine
+    acc_want = system["lern_accuracy"]
+    dense.launches = hist.launches = 0
+    t0 = time.time()
+    with lern.fit_engine_override(acc_want["fit_engine"]):
+        model = sim.load_lern(acc_want["config"], acc_want["variant"],
+                              acc_want["subsample_target"], device=dev)
+    tr = sim.load_trace(acc_want["config"], acc_want["subsample_target"])
+    acc = lern.prediction_accuracy(model, tr)
+    log(f"[accuracy] {acc_want['config']} bucketed fit {time.time() - t0:.1f}"
+        f" s, launches kmeans_assign {dense.launches} ri_histogram "
+        f"{hist.launches}; accuracy {acc!r} (golden "
+        f"{acc_want['accuracy']!r})")
+    if dense.launches <= 0:
+        raise AssertionError("the config7 fit never launched kmeans_assign")
+    if acc != acc_want["accuracy"] or not acc > 0.7:
+        raise AssertionError(f"prediction accuracy {acc} != golden "
+                             f"{acc_want['accuracy']} or not > 0.7")
+
+    # 3b. the kernels at the shapes the paths handed them
     kernels = []
     (ri,) = cap_h.args
     b1, c1 = hops.histogram(ri)
@@ -311,46 +524,48 @@ def main() -> int:
         raise AssertionError("ri_histogram kernel != plain at the main path")
     n = ri.shape[0]
     edges = torch.tensor([-1, 10, 100, 500], dtype=torch.int32, device=dev)
-    h_bytes = 4 * n + 4 * n + 4 * hops.NUM_BINS
-    kernels.append({
-        "name": "ri_histogram", "route": "triton",
-        "source": "src/repro_torch/kernels/ri_histogram/kernel.py",
-        "replaces": "src/repro/kernels/ri_histogram/kernel.py:29",
-        "launches": launches["ri_histogram"],
-        "max_abs_err": int((b1 - b2).abs().max()),
-        "ms": time_ms(lambda: hops.histogram(ri)),
-        "plain_ms": time_ms(lambda: hops.histogram_plain(ri)),
-        "bound_ms": h_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": time_ms(lambda: torch.bucketize(ri, edges)),
-        "shape": {"N": n}})
+    kernels.append(kernel_row(
+        "ri_histogram", "triton",
+        "src/repro_torch/kernels/ri_histogram/kernel.py",
+        "src/repro/kernels/ri_histogram/kernel.py:29",
+        launches["ri_histogram"], int((b1 - b2).abs().max()),
+        time_ms(lambda: hops.histogram(ri)),
+        time_ms(lambda: hops.histogram_plain(ri)),
+        4 * n + 4 * n + 4 * hops.NUM_BINS, 0,
+        time_ms(lambda: torch.bucketize(ri, edges)), {"N": n}))
     x, centers, seg = cap_a.args
     err = check_assign(kops, x, centers, seg, "main path")
     pr, d = x.shape
     s, k, _ = centers.shape
-    a_bytes = 4 * (pr * d + pr + s * k * d + pr)
-    a_flops = pr * k * 4 * d
-    bound_bytes = a_bytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = a_flops / FP32_FLOPS * 1e3
-    kernels.append({
-        "name": "kmeans_assign_segmented", "route": "cuda",
-        "source": "src/repro_torch/csrc/kmeans_assign_segmented.cu",
-        "replaces": "src/repro/kernels/kmeans_assign/kernel.py:39",
-        "launches": launches["kmeans_assign_segmented"],
-        "max_abs_err": err,
-        "ms": time_ms(lambda: kops.assign_segmented(x, centers, seg)),
-        "plain_ms": time_ms(lambda: kops.assign_segmented_plain(
-            x, centers, seg)),
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": None,
-        "shape": {"P": pr, "D": d, "S": s, "K": k}})
+    kernels.append(kernel_row(
+        "kmeans_assign_segmented", "cuda",
+        "src/repro_torch/csrc/kmeans_assign_segmented.cu",
+        "src/repro/kernels/kmeans_assign/kernel.py:39",
+        launches["kmeans_assign_segmented"], err,
+        time_ms(lambda: kops.assign_segmented(x, centers, seg)),
+        time_ms(lambda: kops.assign_segmented_plain(x, centers, seg)),
+        4 * (pr * d + pr + s * k * d + pr), pr * k * 4 * d, None,
+        {"P": pr, "D": d, "S": s, "K": k}))
+    x, centers = cap_d.args
+    err = check_dense(kops, x, centers, "exp.run path")
+    b, nd, d = x.shape
+    k = centers.shape[1]
+    kernels.append(kernel_row(
+        "kmeans_assign", "cuda", "src/repro_torch/csrc/kmeans_assign.cu",
+        "src/repro/kernels/kmeans_assign/kernel.py:72",
+        sys_launches["kmeans_assign"], err,
+        time_ms(lambda: kops.assign(x, centers)),
+        time_ms(lambda: kops.assign_plain(x, centers)),
+        x.element_size() * (b * nd * d + b * k * d) + 4 * b * nd,
+        b * nd * k * (2 * d + 2), None, {"B": b, "N": nd, "D": d, "K": k}))
     for kr in kernels:
-        log(f"[{kr['name']}] at main-path shape {kr['shape']}: kernel "
+        log(f"[{kr['name']}] at path shape {kr['shape']}: kernel "
             f"{kr['ms']:.4f} ms, plain {kr['plain_ms']:.4f} ms, bound "
             f"{kr['bound_ms'] * 1e3:.3f} us ({kr['bound_by']}), library "
             f"{kr['library_ms']} ms, launches {kr['launches']}")
 
     # 5. the LERN fit twice on the card, and once on the CPU
+    os.environ["REPRO_CACHE"] = cache
     tr = sim.load_trace(CONFIG, p.subsample_target)
     t0 = time.time()
     m1 = lern.train_model_batched(tr, device=dev)
@@ -362,13 +577,12 @@ def main() -> int:
     for f in fields:
         if not np.array_equal(getattr(m1, f), getattr(m2, f)):
             raise AssertionError(f"two LERN fits on the card differ in {f}")
-    for f in fields[:4]:
+    for f in fields:
         if not np.array_equal(getattr(m1, f), getattr(m3, f)):
             raise AssertionError(f"LERN fit card vs CPU differs in {f}")
-    log(f"[lern] two fits on the card identical (tables and centres); "
-        f"tables equal the CPU fit; centres card vs CPU bitwise: "
-        f"{all(np.array_equal(getattr(m1, f), getattr(m3, f)) for f in fields[4:])}"
-        f"; one fit {t_fit:.2f} s")
+    log(f"[lern] two fits on the card identical and equal to the CPU fit "
+        f"(tables and centres); one fit {t_fit:.2f} s")
+    log(f"[done] whole script {time.time() - t_script:.1f} s after import")
 
     log(json.dumps({"kernels": [{k: v for k, v in kr.items() if k != "shape"}
                                 for kr in kernels]}))

@@ -81,6 +81,17 @@ SCHED_MODEL_NAMES = ("DDR3_1600_8b1r_squash", "DDR4_2400_32b2r_frfcfs",
                      "DDR4_2400_32b2r_squash")
 
 
+def dram_kind(model: DramModel) -> str:
+    """Artifact tag for the model family: ``fluid`` (the JAX package tags
+    its scheduled models ``sched:<policy>``; asking for one raises until
+    that backend is ported)."""
+    if model.name in SCHED_MODEL_NAMES:
+        raise NotImplementedError(
+            f"{model.name!r}: the scheduled DRAM backend is not ported yet "
+            "(ROADMAP.md Queue 1 item 9)")
+    return "fluid"
+
+
 def default_model() -> DramModel:
     """Default DRAM model for call sites that don't pin one.
 

@@ -1,10 +1,18 @@
-"""Flat-segmented K-Means + semantic cluster annotation (paper §IV-C).
+"""K-Means (masked and flat-segmented) + semantic cluster annotation
+(paper §IV-C).
 
-The LERN fit's default engine: every segment's (layer's RC or RI feature
-set's) Lloyd fit over ONE flat ``[P, D]`` point array, with k-means++
-seeding drawn from the ported threefry generator (``prng``), so the draws
-are those of the JAX package given the same keys.  The assignment step
-runs through the ``kmeans_assign_segmented`` kernel on the card.
+Two fits, one for each LERN fit engine, both seeded by k-means++ draws
+from the ported threefry generator (``prng``), so the draws are those of
+the JAX package given the same keys:
+
+* ``kmeans_fit_masked`` / ``kmeans_fit_batched`` -- the bucketed engine's
+  fit: fixed-shape and mask-aware, with a real leading batch axis (the
+  JAX package vmaps the single fit).  50 fixed Lloyd sweeps; the
+  assignment step runs through the dense ``kmeans_assign`` kernel on the
+  card.
+* ``kmeans_fit_segmented`` -- the default engine's fit: every segment's
+  (layer's RC or RI feature set's) Lloyd fit over ONE flat ``[P, D]``
+  point array, through the ``kmeans_assign_segmented`` kernel.
 
 Every float reduction runs in a fixed order, never through atomics, so
 two runs on the card give identical centres:
@@ -17,11 +25,14 @@ two runs on the card give identical centres:
   depend on where its rows sit in the array -- straggler compaction keeps
   its trajectory.
 
-The orders are those XLA's CPU backend uses for the JAX package's fit
-(measured): its distance dots are fused multiply-add chains over d
+The orders are those XLA's CPU backend uses for the JAX package's fits
+(measured): its distance reductions are fused multiply-add chains over d
 (``dot_fma``), its block reduction and sorted segment scatter-add run in
-index order.  So the port's fit on the CPU is bitwise the JAX package's
-on the CPU wherever XLA's code follows those rules.
+index order.  The masked fit adds XLA's matrix-product order for
+``x @ centers.T`` (``dot_lanes``) and for the Lloyd sums
+``one_hot.T @ x`` (``_lloyd_sums``), and XLA's rewrite of ``cumsum``
+(``_xla_cumsum``).  So the port's fits on the CPU are bitwise the JAX
+package's on the CPU wherever XLA's code follows those rules.
 
 Annotation (paper §IV-C):
 * RC clusters: rank 1-D centers ascending -> Cold(0) Light(1) Moderate(2) Hot(3)
@@ -36,15 +47,253 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..kernels.common import SEG_BLOCK, dot_fma, round_up
+from ..kernels.common import SEG_BLOCK, dot_fma, dot_lanes, round_up
 from ..kernels.kmeans_assign import ops as _kops
 from . import prng
+
+
+class KMeansResult(NamedTuple):
+    centers: torch.Tensor    # [K, D] (in the normalized feature space)
+    assign: torch.Tensor     # [N] cluster index per point
+    inertia: torch.Tensor    # [] sum of squared distances (masked)
+    n_iter: int
 
 
 class SegmentedKMeansResult(NamedTuple):
     centers: torch.Tensor    # [S, K, D] per-segment centroids
     assign: torch.Tensor     # [P] cluster index per flat point (pad: garbage)
     n_iter: int
+
+
+# ---------------------------------------------------------------------------
+# masked fit (the bucketed LERN engine's k-means)
+# ---------------------------------------------------------------------------
+# XLA's CPU matrix product adds the Lloyd sums one_hot.T @ x for D > 1 in
+# blocks of this many rows along N, each block from zero in row order, the
+# block sums in turn (measured for N <= 2048).  For D = 1 (a matrix-vector
+# product) it adds in row order when batched; unbatched (or a batch of
+# one) it runs vectorized code: ``_vector_sum``.
+LLOYD_SUM_BLOCK = 256
+# XLA rewrites a cumsum of length N into prefix sums over rows of this
+# length plus a (recursive) prefix sum of the row totals.
+CUMSUM_BASE = 16
+
+
+def assign(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Nearest-center assignment via the -2 x.c + ||c||^2 expansion (the
+    row-constant ||x||^2 term is dropped from the argmin), the plain
+    counterpart of the JAX package's ``assign_jnp``; x [..., N, D],
+    centers [..., K, D] -> [..., N] int32."""
+    return _kops.assign_plain(x, centers)
+
+
+def _seq_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last axis, added in order."""
+    out = w.clone()
+    for t in range(1, w.shape[-1]):
+        out[..., t] = out[..., t - 1] + w[..., t]
+    return out
+
+
+def _xla_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum`` along the last axis as XLA's CPU backend computes it
+    (measured): rows of ``CUMSUM_BASE`` summed in order, plus the
+    exclusive prefix of the row totals, computed the same way."""
+    n = w.shape[-1]
+    if n <= CUMSUM_BASE:
+        return _seq_cumsum(w)
+    r = -(-n // CUMSUM_BASE)
+    pad = w.new_zeros(w.shape[:-1] + (r * CUMSUM_BASE - n,))
+    rows = _seq_cumsum(torch.cat([w, pad], -1).reshape(
+        w.shape[:-1] + (r, CUMSUM_BASE)))
+    inc = _xla_cumsum(rows[..., -1])
+    excl = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]], -1)
+    return (rows + excl[..., None]).reshape(w.shape[:-1] + (-1,))[..., :n]
+
+
+def _halve(v: np.ndarray) -> np.ndarray:
+    """Sum over axis 0 (a power of two long) by halving: lane i plus lane
+    i + len/2, and again -- LLVM's reduction of a vector register."""
+    while v.shape[0] > 1:
+        h = v.shape[0] // 2
+        v = (v[:h] + v[h:]).astype(np.float32)
+    return v[0]
+
+
+def _vector_sum(v: np.ndarray) -> np.ndarray:
+    """Sum over axis 0 of v [N, ...] in the order of XLA's CPU code for
+    the unbatched f32 matrix-vector product in the LERN fit's
+    ``_fit_layer`` (read off the compiled code and checked on its fits
+    for N = 8..32768): for 512 <= N < 4096 the loop vectorizer's 4 x 8
+    lanes (row n into part n // 8 % 4, lane n % 8; the parts folded as
+    ((p1 + p0) + p2) + p3), otherwise from N = 64 the row-major GEMV's 8
+    lanes (row n into lane n % 8); each lane adds its rows in order from
+    zero, the lanes reduce by halving, and rows past the last full step
+    (and all rows for N < 64) add in order."""
+    n = v.shape[0]
+    parts, lanes = (4, 8) if 512 <= n < 4096 else (1, 8)
+    step = parts * lanes
+    m = (n // step) * step if n >= 64 else 0
+    if m == 0:
+        return np.cumsum(v, axis=0, dtype=np.float32)[-1]
+    acc = np.cumsum(v[:m].reshape((m // step, parts, lanes) + v.shape[1:]),
+                    axis=0, dtype=np.float32)[-1]
+    w = acc[0]
+    for p in range(1, parts):
+        w = (acc[p] + w).astype(np.float32)
+    out = _halve(w)
+    for t in range(m, n):
+        out = (out + v[t]).astype(np.float32)
+    return out
+
+
+def _lloyd_sums(oh: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``one_hot.T @ x`` per batch row -- oh [B, N, K] of 0/1, x [B, N, D]
+    -> [B, K, D] -- in XLA's order: for D > 1 blocks of
+    ``LLOYD_SUM_BLOCK`` rows, each added from zero in row order, the
+    block sums in turn; for D = 1 all rows in order, or, for a batch of
+    one, ``_vector_sum``'s order.
+
+    The f32 sums run on the host (numpy's ``cumsum`` adds in order, in
+    f32): a chain of N dependent adds is one sequential loop there, where
+    it would be N launches on the card."""
+    b, n, k = oh.shape
+    d = x.shape[-1]
+    v = (oh[..., :, :, None] * x[..., :, None, :]).cpu().numpy()
+    if d == 1 and b == 1:
+        return torch.as_tensor(_vector_sum(v[0])[None], device=x.device)
+    blk = n if d == 1 else min(n, LLOYD_SUM_BLOCK)
+    nb = -(-n // blk)
+    if nb * blk != n:
+        v = np.concatenate([v, np.zeros((b, nb * blk - n, k, d), v.dtype)],
+                           1)
+    part = np.cumsum(v.reshape(b, nb, blk, k, d), axis=2,
+                     dtype=np.float32)[:, :, -1]            # [B, nb, K, D]
+    sums = np.cumsum(part, axis=1, dtype=np.float32)[:, -1]
+    return torch.as_tensor(sums, device=x.device)
+
+
+def _pick_masked(keys: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draw from unnormalized ``weights`` [B, N] (masked
+    entries 0), one per batch row: the index whose cumulative weight
+    first reaches ``u * total``."""
+    cum = _xla_cumsum(weights)
+    u = prng.uniform(keys) * cum[:, -1]
+    idx = (cum < u[:, None]).to(torch.int64).sum(1)
+    return torch.clamp(idx, 0, weights.shape[1] - 1)
+
+
+def _plus_plus_init_masked(keys, x, mask, k):
+    """k-means++ seeding over the masked points of every batch row: the
+    first center drawn uniformly from the valid points, the next ones
+    with probability proportional to the masked d² weights."""
+    bsz, n, d = x.shape
+    rows = torch.arange(bsz, device=x.device)
+    fmask = mask.to(x.dtype)
+    ks = prng.split(keys, k)                                # [B, k, 2]
+    n_valid = mask.to(torch.int64).sum(1)
+    t = torch.floor(prng.uniform(ks[:, 0]) * n_valid.to(x.dtype)).to(
+        torch.int64)
+    cm = torch.cumsum(mask.to(torch.int64), 1)
+    idx0 = torch.argmax((cm > t[:, None]).to(torch.uint8), 1)
+    centers = torch.zeros((bsz, k, d), dtype=x.dtype, device=x.device)
+    centers[:, 0] = x[rows, idx0]
+    seeded = torch.arange(k, device=x.device)
+    for i in range(1, k):
+        diff = x[:, :, None, :] - centers[:, None, :, :]    # [B, N, k, D]
+        d2 = (dot_fma(diff, diff)
+              + torch.where(seeded < i, 0.0, torch.inf)).amin(2)
+        centers[:, i] = x[rows, _pick_masked(ks[:, i], d2 * fmask)]
+    return centers
+
+
+def _lloyd_masked(x, mask, centers, k: int, iters: int, use_kernel: bool):
+    """``iters`` Lloyd sweeps over the masked points of every batch row
+    (no early exit, as the JAX package's fixed-length scan); empty
+    clusters re-seed at the row's farthest valid point."""
+    bsz = x.shape[0]
+    rows = torch.arange(bsz, device=x.device)
+    fmask = mask.to(x.dtype)
+    x2 = dot_fma(x, x)                                      # [B, N]
+    for _ in range(iters):
+        c2 = dot_fma(centers, centers)                      # [B, K]
+        sc = c2[:, None, :] - 2.0 * dot_lanes(x[:, :, None, :],
+                                              centers[:, None, :, :])
+        if use_kernel:
+            a = _kops.assign(x, centers)
+        else:
+            a = torch.argmin(sc, 2)
+        oh = torch.nn.functional.one_hot(a.to(torch.int64), k).to(
+            x.dtype) * fmask[:, :, None]
+        counts = oh.sum(1)              # integer-valued: exact in any order
+        new = _lloyd_sums(oh, x) / torch.clamp(counts, min=1.0)[:, :, None]
+        far_score = torch.where(mask, x2 + sc.amin(2), -torch.inf)
+        far = x[rows, torch.argmax(far_score, 1)]           # [B, D]
+        centers = torch.where((counts > 0)[:, :, None], new,
+                              far[:, None, :])
+    return centers
+
+
+def kmeans_fit_batched(x, mask, keys, k: int = 4, iters: int = 50,
+                       use_kernel: bool = True,
+                       device="cuda") -> KMeansResult:
+    """The masked Lloyd fit of every batch row at once: x [B, N, D], mask
+    [B, N], keys [B, 2] (``prng`` keys) -> KMeansResult with a leading B
+    axis on centers, assign and inertia.  Masked-out rows of ``x`` should
+    be zero; their ``assign`` entries are meaningless.
+
+    The counterpart of the JAX package's vmapped ``kmeans_fit_batched``:
+    the batch is a tensor axis of every op.  ``use_kernel`` sends the
+    assignment step through ``kmeans_assign.ops.assign`` (the kernel on a
+    CUDA tensor, its plain version on a CPU tensor); without it the argmin
+    is taken from the same scores in torch.  The inputs move to
+    ``device``; the result lives there."""
+    dev = _device.resolve(device)
+    x = torch.as_tensor(x, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    keys = torch.as_tensor(keys, device=dev)
+    centers = _lloyd_masked(x, mask, _plus_plus_init_masked(keys, x, mask, k),
+                            k, iters, use_kernel)
+    a = (_kops.assign(x, centers) if use_kernel
+         else _kops.assign_plain(x, centers))
+    cg = torch.gather(centers, 1, a.to(torch.int64)[:, :, None].expand(
+        -1, -1, x.shape[2]))
+    diff = x - cg
+    inertia = (dot_fma(diff, diff) * mask.to(x.dtype)).sum(1)
+    return KMeansResult(centers, a, inertia, iters)
+
+
+def kmeans_fit_masked(x, mask, key, k: int = 4, iters: int = 50,
+                      use_kernel: bool = True,
+                      device="cuda") -> KMeansResult:
+    """Lloyd iterations over the points where ``mask`` is True: x [N, D],
+    mask [N], key [2] -- ``kmeans_fit_batched`` with one batch row."""
+    dev = _device.resolve(device)
+    res = kmeans_fit_batched(torch.as_tensor(x, device=dev)[None],
+                             torch.as_tensor(mask, device=dev)[None],
+                             torch.as_tensor(key, device=dev)[None], k=k,
+                             iters=iters, use_kernel=use_kernel, device=dev)
+    return KMeansResult(res.centers[0], res.assign[0], res.inertia[0],
+                        res.n_iter)
+
+
+def kmeans_fit(x, k: int = 4, iters: int = 50, seed: int = 0,
+               use_kernel: bool = True, device="cuda") -> KMeansResult:
+    """Unmasked convenience wrapper over ``kmeans_fit_masked``."""
+    dev = _device.resolve(device)
+    x = torch.as_tensor(x, device=dev)
+    return kmeans_fit_masked(
+        x, torch.ones(x.shape[0], dtype=torch.bool, device=dev),
+        prng.PRNGKey(seed, dev), k=k, iters=iters, use_kernel=use_kernel,
+        device=dev)
+
+
+def normalize(x: torch.Tensor):
+    """Feature normalization for K-means (per-dim min-max): returns
+    ``(normalized, lo, hi)``."""
+    lo = x.amin(0)
+    hi = x.amax(0)
+    return (x - lo) / torch.clamp(hi - lo, min=1e-9), lo, hi
 
 
 def segment_layout(counts, block: int = SEG_BLOCK):

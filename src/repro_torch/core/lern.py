@@ -6,13 +6,23 @@
     K-means(k=4) -> semantic annotation -> per-line (RC_cluster, RI_cluster)
     lookup tables, loaded layer-by-layer into the L-RPT at runtime.
 
-``train_model_batched`` trains all layers of a (model x accel-config) on
-one device: the flat whole-trace feature extraction
-(``reuse.reuse_features_flat``: one composite (layer, line) sort +
-``ri_histogram`` kernel binning), then one flat-segmented k-means over
-every eligible layer (``kmeans.kmeans_fit_segmented``, assignment through
-the ``kmeans_assign_segmented`` kernel).  Only the O(k) semantic
-annotation runs on the host.
+Entry points (each takes ``device=`` and defaults to the card):
+
+* ``train_model_batched`` -- all layers of a (model x accel-config) on
+  one device: the flat whole-trace feature extraction
+  (``reuse.reuse_features_flat``: one composite (layer, line) sort +
+  ``ri_histogram`` kernel binning), then every eligible layer's k-means
+  fits through one of two engines (``FIT_ENGINE``, ``fit_engine=``):
+  ``"segmented"`` (the default; ``kmeans.kmeans_fit_segmented`` over one
+  flat point array, assignment through the ``kmeans_assign_segmented``
+  kernel) or ``"bucketed"`` (layers padded into power-of-two capacity
+  buckets, each bucket one batched ``_fit_layer``; assignment through the
+  dense ``kmeans_assign`` kernel).  Only the O(k) semantic annotation
+  runs on the host.
+* ``train_family_batched`` -- several configs' models in one flat fit.
+* ``train`` / ``train_layer`` -- the host-reference path: per-layer numpy
+  features, then the same ``_fit_layer`` per layer at its own bucket
+  capacity.
 
 Lines with a single occurrence are assigned the No-Reuse cluster (-1, -1).
 The model stores stacked per-layer lookup arrays (``uniq`` / ``rc_cluster``
@@ -21,36 +31,67 @@ and ``sim.trace_clusters``); ``model.layers`` offers per-layer views.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import device as _device
+from ..kernels.common import fma32
 from . import kmeans as km
 from . import prng
-from .reuse import (NUM_RI_BINS, PAD_LINE, lines_to_device,
-                    reuse_features_flat)
+from .reuse import (NUM_RI_BINS, PAD_LINE, RI_BIN_EDGES, lines_to_device,
+                    reuse_features_flat, reuse_signature_np, ri_histogram_np)
 from .tracegen import Trace
+
+# correct-bin sets per RI cluster label for the §IV-D accuracy metric:
+# Immediate<->{bin0}, Near<->{bin0,bin1}, Far<->{bin1,bin2}, Remote<->{bin2,bin3}
+_CORRECT_BINS = {0: (0,), 1: (0, 1), 2: (1, 2), 3: (2, 3)}
 
 MIN_MULTI = 8  # need enough multi-occurrence lines for 4 clusters
 
+# How the trainers run their k-means fits:
+#   "bucketed"  -- layers padded into power-of-two capacity buckets, each
+#                  bucket one batched ``_fit_layer`` (the oracle path: equal
+#                  to the per-layer host reference ``train``).
+#   "segmented" -- all layers' points in ONE flat array with a segment-id
+#                  column (``kmeans.kmeans_fit_segmented``); equal cluster
+#                  tables, centres to FP reassociation.
+#   "auto"      -- segmented.
+FIT_ENGINE = os.environ.get("REPRO_LERN_FIT", "auto")
+
 
 def resolve_engine(engine: Optional[str] = None) -> str:
-    """The concrete k-means fit engine: the port has the flat-segmented
-    one (``"segmented"``, also what ``"auto"`` means)."""
-    e = engine or "auto"
+    """Resolve a fit-engine override (or the module default
+    ``FIT_ENGINE``) to the concrete engine name."""
+    e = engine or FIT_ENGINE
     if e == "auto":
         e = "segmented"
-    if e == "bucketed":
-        raise NotImplementedError(
-            "the bucketed LERN fit engine is not ported yet (ROADMAP.md "
-            "Queue 1, 'lern rest')")
-    if e != "segmented":
+    if e not in ("bucketed", "segmented"):
         raise ValueError(f"unknown LERN fit engine {e!r} "
-                         "(expected segmented|auto)")
+                         "(expected bucketed|segmented|auto)")
     return e
+
+
+@contextlib.contextmanager
+def fit_engine_override(engine: Optional[str]):
+    """Temporarily pin the module-default fit engine (``FIT_ENGINE``) --
+    how ``exp.ExecPlan.fit_engine`` reaches call sites that consult the
+    default at fit time.  ``None`` is a no-op."""
+    global FIT_ENGINE
+    if engine is None:
+        yield
+        return
+    resolve_engine(engine)  # validate eagerly, before any fit runs
+    prev = FIT_ENGINE
+    FIT_ENGINE = engine
+    try:
+        yield
+    finally:
+        FIT_ENGINE = prev
 
 
 def _bucket(n: int) -> int:
@@ -159,6 +200,122 @@ class LernModel:
                          features_ri=feats, hash_fn=self.hash_fn)
 
 
+# XLA's f32 log(v) on the CPU (its log1p(x) for x >= 0.414 is log(1 + x)):
+# a Cephes-style polynomial whose multiply-adds LLVM fuses (read off the
+# compiled code).  The constants are XLA's, as f32.
+_LOG_C = (0.07037683576345444, -0.11514610052108765, -0.12420140951871872,
+          0.14249323308467865, 0.2000071406364441, -0.24999994039535522,
+          0.11676998436450958, -0.16668057441711426, 0.3333333134651184)
+_LN2_LO, _LN2_HI = -0.00021219444170128554, 0.693359375  # ln 2, split
+_SQRT_HALF = 0.7071067690849304
+
+
+def log1p_counts(n: torch.Tensor) -> torch.Tensor:
+    """``log1p`` of non-negative integer counts (int tensor) as f32, bit
+    for bit what XLA's CPU ``jnp.log1p`` gives (checked for every count
+    below 2**20; torch's correctly rounded ``log1p`` differs in the last
+    bit for ~1 % of them).  LERN's RC features are reuse counts."""
+    v = n.to(torch.float32) + 1.0
+    bits = v.view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _SQRT_HALF
+    x = (m - 1.0) + torch.where(small, m, 0.0)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0 - small.to(torch.float32)
+    z = x * x
+    z3 = z * x
+    c = [torch.full_like(x, k) for k in _LOG_C]
+    p1, p2, p3 = (fma32(x, c[i], c[i + 1]) for i in (0, 2, 4))
+    q1, q2, q3 = (fma32(p, x, c[6 + i]) for i, p in enumerate((p1, p2, p3)))
+    r = fma32(fma32(q1, z3, q2), z3, q3)
+    y = fma32(r, z3, e * _LN2_LO)
+    return fma32(e, torch.full_like(x, _LN2_HI), (x - z * 0.5) + y)
+
+
+# XLA's f32 exp on the CPU (its expm1(x) for |x| > 0.5 is exp(x) - 1): a
+# Cephes-style range reduction and polynomial whose multiply-adds LLVM
+# fuses.  The constants are XLA's, as f32.
+_EXP_CLAMP = (-87.80000305175781, 88.80000305175781)
+_LOG2E = 1.4426950216293335
+_EXP_P = (0.00019875691214110702, 0.001398199936375022, 0.008333452045917511,
+          0.04166579619050026, 0.1666666567325592, 0.5)
+
+
+def expm1_centres(x: torch.Tensor) -> torch.Tensor:
+    """``expm1`` of f32 values above 0.5 -- de-normalized RC centres,
+    which lie at or above log1p(2) -- bit for bit what XLA's CPU
+    ``jnp.expm1`` gives there (checked on four million samples of
+    [0.5, 20]).  Smaller values take torch's ``expm1``: XLA switches to a
+    tanh form there that this does not replay."""
+    xc = torch.clamp(x, *_EXP_CLAMP)
+    fx = torch.clamp(torch.floor(fma32(xc, torch.full_like(xc, _LOG2E),
+                                       torch.full_like(xc, 0.5))),
+                     -127.0, 127.0)
+    r = fma32(-fx, torch.full_like(xc, _LN2_HI), xc)
+    r = fma32(-fx, torch.full_like(xc, _LN2_LO), r)
+    y = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = fma32(y, r, torch.full_like(r, c))
+    e = fma32(y, r * r, r) + 1.0
+    pow2 = ((fx.to(torch.int32) << 23) + 0x3F800000).view(torch.float32)
+    return torch.where(x.abs() > 0.5, e * pow2 - 1.0, torch.expm1(x))
+
+
+# ---------------------------------------------------------------------------
+# the bucketed engine: batched per-layer fits at power-of-two capacities
+# ---------------------------------------------------------------------------
+def _fit_layer(f_ri: torch.Tensor, f_rc: torch.Tensor, n_multi: torch.Tensor,
+               keys: torch.Tensor, use_kernel: bool = True) -> Dict:
+    """Fit RC + RI clusters for a batch of layers' compacted feature
+    tables: ``f_ri`` [G, N, 4] / ``f_rc`` [G, N] hold each layer's
+    multi-occurrence lines in its first ``n_multi[g]`` rows (uniq order),
+    zero-padded to the capacity N; ``keys`` [G, 2].  The batch axis is
+    the JAX package's ``vmap`` of its per-layer ``_fit_layer``.  Returns
+    [G, ...] tensors: rc/ri assignments, de-normalized centres and the RC
+    centres in the normalized space."""
+    g, n = f_rc.shape
+    dev = f_rc.device
+    cmask = torch.arange(n, device=dev)[None, :] < n_multi[:, None]
+    m3 = cmask[:, :, None]
+    # --- RC clustering (1-D, log1p + min-max normalized) -------------------
+    xrc = log1p_counts(f_rc)[:, :, None]
+    lo = torch.where(m3, xrc, torch.inf).amin(1)             # [G, 1]
+    hi = torch.where(m3, xrc, -torch.inf).amax(1)
+    span = hi - lo
+    xn = torch.where(m3, (xrc - lo[:, None]) / torch.clamp(
+        span, min=1e-9)[:, None], 0.0)
+    rc = km.kmeans_fit_batched(xn, cmask, prng.fold_in(keys, 0), k=4,
+                               use_kernel=use_kernel, device=dev)
+    # XLA contracts c * (hi - lo) + lo into one fused multiply-add
+    rc_centers = expm1_centres(fma32(rc.centers, span[:, None],
+                                     lo[:, None])).reshape(g, -1)
+    # --- RI clustering (4-D histogram rows, L1-normalized) -----------------
+    raw = f_ri.to(torch.float32)
+    xri = torch.where(m3, raw / torch.clamp(raw.sum(2, keepdim=True),
+                                            min=1e-9), 0.0)
+    ri = km.kmeans_fit_batched(xri, cmask, prng.fold_in(keys, 1), k=4,
+                               use_kernel=use_kernel, device=dev)
+    # de-normalized centres: mean raw histogram of each cluster's members
+    # (sums of integer counts, exact in any order)
+    oh = torch.nn.functional.one_hot(ri.assign.to(torch.int64), 4).to(
+        torch.float64) * m3
+    cnt = oh.sum(1).to(torch.float32)
+    sums = torch.einsum("gnk,gnd->gkd", oh, raw.to(torch.float64)).to(
+        torch.float32)
+    ri_centers = sums / torch.clamp(cnt, min=1.0)[:, :, None]
+    return {"rc_assign": rc.assign, "rc_centers": rc_centers,
+            "rc_centers_norm": rc.centers.reshape(g, -1),
+            "ri_assign": ri.assign, "ri_centers": ri_centers}
+
+
+def _fit_groups(groups, use_kernel: bool = True):
+    """All layers' bucketed fits: ``groups`` is a tuple of capacity
+    buckets, each a ``(f_ri [G, cap, 4], f_rc [G, cap], n_multi [G],
+    keys [G, 2])`` tuple of tensors on one device; each bucket is one
+    batched ``_fit_layer``."""
+    return tuple(_fit_layer(f_ri, f_rc, nm, keys, use_kernel=use_kernel)
+                 for f_ri, f_rc, nm, keys in groups)
+
+
 def _seg_prep(f_ri: torch.Tensor, f_rc: torch.Tensor, seg: torch.Tensor,
               keys: torch.Tensor, n_seg: int) -> Dict:
     """Normalize the flat feature rows into the combined 2*n_seg-segment
@@ -168,7 +325,7 @@ def _seg_prep(f_ri: torch.Tensor, f_rc: torch.Tensor, seg: torch.Tensor,
     dev = f_rc.device
     valid = seg < n_seg
     segc = torch.clamp(seg, max=n_seg - 1).to(torch.int64)
-    xrc = torch.log1p(f_rc.to(torch.float32))
+    xrc = log1p_counts(f_rc)
     inf = torch.full((n_seg,), torch.inf, device=dev)
     lo = inf.scatter_reduce(0, segc, torch.where(valid, xrc, torch.inf),
                             "amin")
@@ -201,8 +358,9 @@ def _seg_post(assign2: torch.Tensor, centers2: torch.Tensor,
     dev = f_ri.device
     valid = seg < n_seg
     rc_centers_norm = centers2[:n_seg, :, 0]              # [S, 4]
-    rc_centers = torch.expm1(rc_centers_norm * (hi - lo)[:, None]
-                             + lo[:, None])
+    # XLA contracts c * (hi - lo) + lo into one fused multiply-add
+    rc_centers = expm1_centres(fma32(rc_centers_norm, (hi - lo)[:, None],
+                                     lo[:, None]))
     ri_assign = assign2[p:]
     raw = f_ri.to(torch.float32)
     sid = torch.where(valid, seg.to(torch.int64) * 4 + ri_assign,
@@ -252,6 +410,78 @@ def _annotate(fit: Dict, n_multi: int) -> Dict:
     }
 
 
+def _fit_host_features(uniq: np.ndarray, f_ri: np.ndarray, f_rc: np.ndarray,
+                       seed: int, cap: Optional[int], use_kernel: bool,
+                       dev: torch.device) -> LayerClusters:
+    """Cluster one layer from host-extracted integer features through
+    ``_fit_layer`` (one batch row) at ``cap``-padded shape on ``dev``."""
+    n = uniq.shape[0]
+    rc_cluster = np.full(n, -1, dtype=np.int64)
+    ri_cluster = np.full(n, -1, dtype=np.int64)
+    multi = f_rc > 1  # single-occurrence lines -> No Reuse
+    n_multi = int(multi.sum())
+
+    rc_centers = np.zeros(4, np.float32)
+    ri_centers = np.zeros((4, NUM_RI_BINS), np.float32)
+    if n_multi >= MIN_MULTI:
+        cap = cap or _bucket(n_multi)
+        f_ri_c = np.zeros((1, cap, NUM_RI_BINS), np.int32)
+        f_rc_c = np.zeros((1, cap), np.int32)
+        f_ri_c[0, :n_multi] = f_ri[multi]
+        f_rc_c[0, :n_multi] = f_rc[multi]
+        fit = _fit_layer(torch.as_tensor(f_ri_c, device=dev),
+                         torch.as_tensor(f_rc_c, device=dev),
+                         torch.tensor([n_multi], device=dev),
+                         prng.PRNGKey(seed, dev)[None],
+                         use_kernel=use_kernel)
+        ann = _annotate({k: v[0].cpu().numpy() for k, v in fit.items()},
+                        n_multi)
+        rc_cluster[multi] = ann["rc_label"]
+        ri_cluster[multi] = ann["ri_label"]
+        rc_centers, ri_centers = ann["rc_centers"], ann["ri_centers"]
+
+    return LayerClusters(uniq=uniq, rc_cluster=rc_cluster,
+                         ri_cluster=ri_cluster, rc_centers=rc_centers,
+                         ri_centers=ri_centers,
+                         features_ri=f_ri[multi] if multi.any()
+                         else np.zeros((0, NUM_RI_BINS), np.int64))
+
+
+def train_layer(lines: np.ndarray, seed: int = 0, cap: Optional[int] = None,
+                use_kernel: bool = True, device="cuda") -> LayerClusters:
+    """Host-reference LERN pipeline on one layer's line trace: numpy
+    features, then ``_fit_layer`` on ``device`` padded to ``cap`` points
+    (default: this layer's own power-of-two bucket, the capacity its row
+    gets in the bucketed engine)."""
+    dev = _device.resolve(device)
+    sig = reuse_signature_np(lines)
+    f_ri, f_rc = ri_histogram_np(lines, sig)
+    return _fit_host_features(sig["uniq"], f_ri, f_rc, seed, cap, use_kernel,
+                              dev)
+
+
+def _layer_lines(trace: Trace, hash_fn: Optional[Callable]
+                 ) -> List[np.ndarray]:
+    out = []
+    for li in range(len(trace.layer_names)):
+        lines = trace.line[trace.layer == li]
+        out.append(hash_fn(lines) if hash_fn is not None else lines)
+    return out
+
+
+def train(trace: Trace, hash_fn: Optional[Callable] = None, seed: int = 0,
+          use_kernel: bool = True, device="cuda") -> LernModel:
+    """Host-reference trainer: per-layer numpy features + ``_fit_layer``
+    per layer at its own power-of-two capacity, the shape its row has in
+    the bucketed engine.  ``hash_fn`` (paper §VI-J): train on *hashed*
+    addresses so the predictor internalizes L-RPT aliasing."""
+    dev = _device.resolve(device)
+    layers = [train_layer(lines, seed=seed + li, use_kernel=use_kernel,
+                          device=dev)
+              for li, lines in enumerate(_layer_lines(trace, hash_fn))]
+    return LernModel.from_layers(layers, hash_fn=hash_fn)
+
+
 def _extract_flat(lines_all: np.ndarray, layer_all: np.ndarray, n_l: int,
                   dev: torch.device):
     """One ``reuse_features_flat`` extraction over the concatenated trace
@@ -280,6 +510,61 @@ def _extract_flat(lines_all: np.ndarray, layer_all: np.ndarray, n_l: int,
         if nm >= MIN_MULTI:
             elig.append(li)
     return uniq_f, f_ri_f, f_rc_f, n_uniq, offs, per_layer, elig
+
+
+def _fit_flat(lines_all: np.ndarray, layer_all: np.ndarray, n_l: int,
+              key_seeds: List[int], dev: torch.device, use_kernel: bool,
+              fit_engine: Optional[str]):
+    """Shared flat-trace fit core of the batched trainers: one
+    ``reuse_features_flat`` extraction over the concatenated trace
+    (``layer_all`` non-decreasing, 0..n_l-1), then every eligible layer's
+    k-means fits on the engine ``fit_engine`` names; ``key_seeds[li]``
+    seeds layer li's draws.  Returns (uniq_f, f_ri_f, f_rc_f, n_uniq,
+    offs, per_layer, layer_fits), ``layer_fits[li]`` the host-side fit
+    dict ``_annotate`` consumes (absent for ineligible layers)."""
+    engine = resolve_engine(fit_engine)
+    uniq_f, f_ri_f, f_rc_f, n_uniq, offs, per_layer, elig = \
+        _extract_flat(lines_all, layer_all, n_l, dev)
+    if engine == "segmented":
+        layer_fits = _fit_flat_segmented(f_ri_f, f_rc_f, offs, per_layer,
+                                         elig, key_seeds, dev)
+    else:
+        layer_fits = _fit_flat_bucketed(f_ri_f, f_rc_f, offs, per_layer,
+                                        elig, key_seeds, use_kernel, dev)
+    return uniq_f, f_ri_f, f_rc_f, n_uniq, offs, per_layer, layer_fits
+
+
+def _fit_flat_bucketed(f_ri_f, f_rc_f, offs, per_layer, elig, key_seeds,
+                       use_kernel: bool, dev: torch.device
+                       ) -> Dict[int, Dict]:
+    """Oracle fit path: layers batched in power-of-two capacity buckets,
+    one ``_fit_layer`` per bucket."""
+    buckets: Dict[int, List[int]] = {}
+    for li in elig:
+        buckets.setdefault(_bucket(per_layer[li][1]), []).append(li)
+    groups = []
+    group_of: Dict[int, tuple] = {}
+    for cap in sorted(buckets):
+        members = buckets[cap]
+        g_ri = np.zeros((len(members), cap, NUM_RI_BINS), np.int32)
+        g_rc = np.zeros((len(members), cap), np.int32)
+        g_nm = np.zeros(len(members), np.int64)
+        for gi, li in enumerate(members):
+            multi, nm = per_layer[li]
+            sl = slice(offs[li], offs[li + 1])
+            g_ri[gi, :nm] = f_ri_f[sl][multi]
+            g_rc[gi, :nm] = f_rc_f[sl][multi]
+            g_nm[gi] = nm
+            group_of[li] = (len(groups), gi)
+        keys = torch.stack([prng.PRNGKey(key_seeds[li], dev)
+                            for li in members])
+        groups.append((torch.as_tensor(g_ri, device=dev),
+                       torch.as_tensor(g_rc, device=dev),
+                       torch.as_tensor(g_nm, device=dev), keys))
+    fits = _fit_groups(tuple(groups), use_kernel=use_kernel)
+    fits_np = [{k: v.cpu().numpy() for k, v in f.items()} for f in fits]
+    return {li: {k: v[gi] for k, v in fits_np[g].items()}
+            for li, (g, gi) in group_of.items()}
 
 
 def _fit_flat_segmented(f_ri_f, f_rc_f, offs, per_layer, elig, key_seeds,
@@ -364,20 +649,113 @@ def _layer_sorted(trace: Trace):
 
 
 def train_model_batched(trace: Trace, hash_fn: Optional[Callable] = None,
-                        seed: int = 0, device="cuda") -> LernModel:
+                        seed: int = 0, use_kernel: bool = True,
+                        fit_engine: Optional[str] = None,
+                        device="cuda") -> LernModel:
     """Train the whole model's LERN tables on ``device``: one flat feature
-    extraction, one flat-segmented k-means over every eligible layer
-    (layer ``li`` seeded with ``PRNGKey(seed + li)``), host annotation.
-    Assignment-equal to the JAX package's ``lern.train_model_batched``
-    (same label tables; centres to FP reassociation)."""
+    extraction, every eligible layer's fits on the ``fit_engine`` (default
+    ``FIT_ENGINE``; layer ``li`` seeded with ``PRNGKey(seed + li)``), host
+    annotation.  Equal in cluster tables to the JAX package's
+    ``lern.train_model_batched`` on the same engine (centres to FP
+    reassociation).  ``use_kernel`` (bucketed engine) sends the Lloyd
+    assignment through the dense kernel's wrapper."""
     dev = _device.resolve(device)
     lines_all, layer_all = _layer_sorted(trace)
     if hash_fn is not None:
         lines_all = hash_fn(lines_all)
     n_l = max(len(trace.layer_names), 1)
-    uniq_f, f_ri_f, f_rc_f, n_uniq, offs, per_layer, elig = \
-        _extract_flat(lines_all, layer_all, n_l, dev)
-    layer_fits = _fit_flat_segmented(f_ri_f, f_rc_f, offs, per_layer, elig,
-                                     [seed + li for li in range(n_l)], dev)
-    flat = (uniq_f, f_ri_f, f_rc_f, n_uniq, offs, per_layer, layer_fits)
+    flat = _fit_flat(lines_all, layer_all, n_l,
+                     [seed + li for li in range(n_l)], dev, use_kernel,
+                     fit_engine)
     return _assemble(flat, 0, n_l, hash_fn)
+
+
+def train_family_batched(traces: List[Trace],
+                         hash_fn: Optional[Callable] = None, seed: int = 0,
+                         use_kernel: bool = True,
+                         fit_engine: Optional[str] = None,
+                         device="cuda") -> List[LernModel]:
+    """Train several configs' LERN models in one flat fit: the traces
+    concatenated with offset layer ids into one extraction, every
+    config's layers in one engine call.  Each model equals
+    ``train_model_batched(traces[i], ...)`` on the same engine: per-layer
+    integer features are position-exact under concatenation, bucket rows
+    and segments are independent, and each layer keeps its own-config key
+    ``seed + local_layer``."""
+    dev = _device.resolve(device)
+    n_ls = [max(len(tr.layer_names), 1) for tr in traces]
+    bounds = np.concatenate([[0], np.cumsum(n_ls)]).astype(np.int64)
+    lines_parts, layer_parts, seeds = [], [], []
+    for ci, tr in enumerate(traces):
+        lines, layer = _layer_sorted(tr)
+        lines_parts.append(lines)
+        layer_parts.append(layer + bounds[ci])
+        seeds.extend(seed + li for li in range(n_ls[ci]))
+    lines_all = (np.concatenate(lines_parts) if traces
+                 else np.zeros(0, np.int64))
+    layer_all = (np.concatenate(layer_parts) if traces
+                 else np.zeros(0, np.int64))
+    if hash_fn is not None and lines_all.size:
+        lines_all = hash_fn(lines_all)
+    flat = _fit_flat(lines_all, layer_all, int(bounds[-1]), seeds, dev,
+                     use_kernel, fit_engine)
+    return [_assemble(flat, int(bounds[ci]), int(bounds[ci + 1]), hash_fn)
+            for ci in range(len(traces))]
+
+
+def prediction_accuracy(model: LernModel, trace: Trace) -> float:
+    """§IV-D: fraction of actual reuse intervals whose bin matches the
+    cluster's correct-bin set (No-Reuse lines: correct iff truly single)."""
+    e0, e1, e2 = RI_BIN_EDGES
+    total = 0
+    correct = 0
+    for li, lc in enumerate(model.layers):
+        mask = trace.layer == li
+        lines = trace.line[mask]
+        if model.hash_fn is not None:
+            lines = model.hash_fn(lines)
+        sig = reuse_signature_np(lines)
+        ri, inv = sig["ri"], sig["inv"]
+        # map this trace's unique set onto the trained unique set
+        pos = np.searchsorted(lc.uniq, sig["uniq"])
+        pos = np.clip(pos, 0, max(0, lc.uniq.shape[0] - 1))
+        known = (lc.uniq.shape[0] > 0) & (lc.uniq[pos] == sig["uniq"])
+        ri_cl = np.where(known, lc.ri_cluster[pos], -1)[inv]
+        valid = ri >= 0  # occurrences that have an actual next-reuse
+        bins = np.where(ri <= e0, 0, np.where(ri <= e1, 1,
+                        np.where(ri <= e2, 2, 3)))
+        for lbl, ok_bins in _CORRECT_BINS.items():
+            m = valid & (ri_cl == lbl)
+            total += int(m.sum())
+            correct += int(np.isin(bins[m], ok_bins).sum())
+        # No-Reuse predictions are correct when the line truly has no reuse:
+        m = (ri_cl == -1)
+        total += int(m.sum())
+        correct += int((ri[m] < 0).sum())
+    return correct / max(1, total)
+
+
+def cluster_distribution(model: LernModel, trace: Trace
+                         ) -> Dict[str, np.ndarray]:
+    """Fig. 6: per-layer % of memory *accesses* in each RI / RC cluster."""
+    n_layers = model.n_layers
+    ri_dist = np.zeros((n_layers, 5))  # Immediate..Remote, NoReuse
+    rc_dist = np.zeros((n_layers, 5))  # Cold..Hot, NoReuse
+    for li, lc in enumerate(model.layers):
+        mask = trace.layer == li
+        lines = trace.line[mask]
+        if model.hash_fn is not None:
+            lines = model.hash_fn(lines)
+        uniq, inv, cnt = np.unique(lines, return_inverse=True,
+                                   return_counts=True)
+        pos = np.searchsorted(lc.uniq, uniq)
+        pos = np.clip(pos, 0, max(0, lc.uniq.shape[0] - 1))
+        known = (lc.uniq.shape[0] > 0) & (lc.uniq[pos] == uniq)
+        ri_cl = np.where(known, lc.ri_cluster[pos], -1)[inv]
+        rc_cl = np.where(known, lc.rc_cluster[pos], -1)[inv]
+        for k in range(4):
+            ri_dist[li, k] = (ri_cl == k).mean()
+            rc_dist[li, k] = (rc_cl == k).mean()
+        ri_dist[li, 4] = (ri_cl == -1).mean()
+        rc_dist[li, 4] = (rc_cl == -1).mean()
+    return {"ri": ri_dist, "rc": rc_dist}

@@ -5,7 +5,9 @@ epoch's event stream is regrouped into "rounds" -- round r holds the r-th
 access of every set -- and one dense, vectorized transition advances the
 whole [S, W] state per round (gather/compare/one-hot select), instead of a
 serial per-event loop.  ``simulate_epoch`` runs the rounds as a Python loop
-of torch ops on the state's device.  Exactness: per-set event order is
+of torch ops on the state's device; ``simulate_epoch_lanes`` runs several
+policy lanes through one such loop, the lane axis a dimension of every
+op.  Exactness: per-set event order is
 preserved, so hits/misses/LRU/occupancy are exact.  The only relaxation is
 that global SHIP counter updates within one round are applied as a batch;
 ``ref_simulate`` (the serial oracle) pins the exact semantics on
@@ -166,14 +168,19 @@ def build_rounds(cfg: LLCConfig, line: np.ndarray, meta: np.ndarray,
 
 
 class LaneKnobs(NamedTuple):
-    """One lane's policy knobs: the three mode switches as Python values
+    """Policy knobs of one lane or of a lane batch.
+
+    One lane (``_const_knobs``): the three mode switches as Python values
     (the round loop branches on them) and the way masks as bool [W]
-    tensors on the state's device."""
-    accel_mode: int
-    core_bypass: bool
-    shared_predictor: bool
-    core_ways: torch.Tensor        # bool [W]
-    accel_ways: torch.Tensor       # bool [W]
+    tensors.  A lane batch (``lane_knobs``): every knob a tensor with a
+    leading lane axis -- modes [L, 1], way masks [L, 1, W] -- so one
+    round's ops advance all lanes at once.  Geometry and the SHIP table
+    shape stay static and must agree across lanes (``geometry_key``)."""
+    accel_mode: object             # int | int64 [L, 1]
+    core_bypass: object            # bool | bool [L, 1]
+    shared_predictor: object       # bool | bool [L, 1]
+    core_ways: torch.Tensor        # bool [W] | [L, 1, W]
+    accel_ways: torch.Tensor       # bool [W] | [L, 1, W]
 
 
 def _const_knobs(cfg: LLCConfig, device) -> LaneKnobs:
@@ -187,6 +194,53 @@ def _const_knobs(cfg: LLCConfig, device) -> LaneKnobs:
                                    device=device))
 
 
+def lane_knobs(cfgs, device="cuda") -> LaneKnobs:
+    """Stack the policy knobs of several LLCConfigs along a lane axis."""
+    dev = _device.resolve(device)
+    w = cfgs[0].ways
+
+    def col(vals, dtype):
+        return torch.as_tensor(vals, dtype=dtype, device=dev)[:, None]
+
+    def ways(attr):
+        return torch.as_tensor(np.stack([_mask_to_vec(getattr(c, attr), w)
+                                         for c in cfgs]), device=dev)[:, None]
+
+    return LaneKnobs(
+        accel_mode=col([c.accel_mode for c in cfgs], torch.int64),
+        core_bypass=col([c.core_bypass for c in cfgs], torch.bool),
+        shared_predictor=col([c.shared_predictor for c in cfgs], torch.bool),
+        core_ways=ways("core_way_mask"), accel_ways=ways("accel_way_mask"))
+
+
+def select_knobs(knobs: LaneKnobs, keep: torch.Tensor) -> LaneKnobs:
+    """The lanes ``keep`` (indices) of a lane batch's knobs."""
+    return LaneKnobs(*(k[keep] for k in knobs))
+
+
+def geometry_key(cfg: LLCConfig) -> Tuple:
+    """Lanes may share one batched epoch iff these static fields agree
+    (they fix the state shapes)."""
+    return (cfg.size_bytes, cfg.ways, cfg.line_bytes, cfg.ship,
+            cfg.sampler_shift)
+
+
+def stack_states(cfg: LLCConfig, n: int, device="cuda") -> LLCState:
+    """n fresh per-lane LLC states stacked on a leading lane axis."""
+    one = init_state(cfg, device)
+    return LLCState(*(x.expand((n,) + x.shape).clone() for x in one))
+
+
+def lane_state(states: LLCState, i: int) -> LLCState:
+    """Lane ``i`` of a stacked state, as a one-lane state."""
+    return LLCState(*(x[i] for x in states))
+
+
+def select_states(states: LLCState, keep: torch.Tensor) -> LLCState:
+    """The lanes ``keep`` (indices) of a stacked state."""
+    return LLCState(*(x[keep] for x in states))
+
+
 def _sampler(cfg: LLCConfig, device) -> torch.Tensor:
     """bool [S]: the SHIP observer (sampler) sets."""
     return torch.as_tensor(
@@ -195,19 +249,34 @@ def _sampler(cfg: LLCConfig, device) -> torch.Tensor:
 
 
 def _gather_way(a: torch.Tensor, way: torch.Tensor) -> torch.Tensor:
-    return a.gather(1, way[:, None])[:, 0]
+    return a.gather(-1, way[..., None])[..., 0]
+
+
+def _table_add(table: torch.Tensor, idx: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    """``table`` [..., T] with ``vals`` added at ``idx`` (both [..., C]),
+    each lane into its own table row (integer adds: order-free)."""
+    t = table.shape[-1]
+    if table.dim() == 1:
+        return table.index_add(0, idx, vals)
+    offs = torch.arange(table.shape[0], device=table.device)[:, None] * t
+    return table.reshape(-1).index_add(
+        0, (idx + offs).reshape(-1), vals.reshape(-1)).reshape(table.shape)
 
 
 def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
-                     rows, shct, line, meta, tick: int):
-    """THE per-round LLC transition on [C, W] state rows.
+                     rows, shct, line, meta, tick):
+    """THE per-round LLC transition on [..., C, W] state rows: one lane
+    ([C, W]) or a lane batch ([L, C, W], knobs from ``lane_knobs``).
 
     ``rows`` is ``(tags, lru, owner, sig, reused)``; ``shct`` is
-    ``(shct_core, shct_accel)``; ``sampler_j`` is the bool sampler-set
-    mask for the same rows; ``tick`` is the already-advanced round tick.
-    Returns ``(new_rows, new_shct, stat_masks [10, C] bool, hits [C] bool,
-    misses [C] bool, src [C] int64)``: the per-set events each stat and
-    per-core counter counts this round."""
+    ``(shct_core, shct_accel)`` ([..., T]); ``sampler_j`` is the bool
+    sampler-set mask for the C rows; ``line``/``meta`` are [..., C];
+    ``tick`` is the already-advanced round tick, shaped to broadcast
+    against [..., C, W].  Returns ``(new_rows, new_shct, stat_masks
+    [10, ..., C] bool, hits [..., C] bool, misses [..., C] bool, src
+    [..., C] int64)``: the per-set events each stat and per-core counter
+    counts this round."""
     tags, lru, owner, sig, reused = rows
     shct_core0, shct_accel0 = shct
     w = cfg.ways
@@ -226,23 +295,30 @@ def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
     dlok = (meta & M_DLOK) != 0
     src = ((meta >> M_SRC_SHIFT) & 0x7).to(torch.int64)
 
-    hit_vec = (tags == line[:, None]) & (tags != -1)         # [C, W]
-    hit = hit_vec.any(1) & valid
-    way_hit = torch.argmax(hit_vec.to(torch.uint8), 1)
+    hit_vec = (tags == line[..., None]) & (tags != -1)       # [..., C, W]
+    hit = hit_vec.any(-1) & valid
+    way_hit = torch.argmax(hit_vec.to(torch.uint8), -1)
 
     sig_e = ship_mod.signature(line, cfg.ship)
-    pred_dead_core = shct_core0[sig_e] == 0
-    pred_dead_accel = (shct_core0 if shared else shct_accel0)[sig_e] == 0
-
-    if accel_ship:
-        byp_accel = pred_dead_accel
-    elif knobs.accel_mode == A_NONE:
-        byp_accel = torch.zeros_like(hint)
+    pred_dead_core = shct_core0.gather(-1, sig_e) == 0
+    if isinstance(shared, torch.Tensor):
+        pred_dead_accel = torch.where(
+            shared, pred_dead_core, shct_accel0.gather(-1, sig_e) == 0)
+        byp_accel = torch.where(accel_ship, pred_dead_accel,
+                                hint & (knobs.accel_mode != A_NONE))
+        byp_core = pred_dead_core & knobs.core_bypass
     else:
-        byp_accel = hint
+        pred_dead_accel = (pred_dead_core if shared
+                           else shct_accel0.gather(-1, sig_e) == 0)
+        if accel_ship:
+            byp_accel = pred_dead_accel
+        elif knobs.accel_mode == A_NONE:
+            byp_accel = torch.zeros_like(hint)
+        else:
+            byp_accel = hint
+        byp_core = (pred_dead_core if knobs.core_bypass
+                    else torch.zeros_like(pred_dead_core))
     byp_accel = byp_accel & dlok
-    byp_core = (pred_dead_core if knobs.core_bypass
-                else torch.zeros_like(pred_dead_core))
     bypass = torch.where(is_accel, byp_accel, byp_core) & valid & ~prefetch
     # SHIP-driven bypasses never apply in observer (sampler) sets;
     # LERN/random hints are unaffected (offline predictions).
@@ -254,12 +330,12 @@ def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
     served_hit = hit & ~inval
     # --- miss path -----------------------------------------------------
     do_insert = (~hit) & (~bypass) & valid
-    allowed = torch.where((is_accel | prefetch)[:, None],
-                          knobs.accel_ways[None, :], knobs.core_ways[None, :])
+    allowed = torch.where((is_accel | prefetch)[..., None],
+                          knobs.accel_ways, knobs.core_ways)
     empty = (tags == -1) & allowed
-    has_empty = empty.any(1)
-    first_empty = torch.argmax(empty.to(torch.uint8), 1)
-    victim_lru = torch.argmin(torch.where(allowed, lru, imax), 1)
+    has_empty = empty.any(-1)
+    first_empty = torch.argmax(empty.to(torch.uint8), -1)
+    victim_lru = torch.argmin(torch.where(allowed, lru, imax), -1)
     victim = torch.where(has_empty, first_empty, victim_lru)
     vic_tag = _gather_way(tags, victim)
     vic_reused = _gather_way(reused, victim)
@@ -269,18 +345,18 @@ def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
 
     # --- state update (one-hot masks over ways) ------------------------
     upd_way = torch.where(served_hit, way_hit, victim)
-    onehot = upd_way[:, None] == wr[None, :]                 # [C, W]
-    ins_mask = onehot & do_insert[:, None]
-    inval_mask = (way_hit[:, None] == wr[None, :]) & inval[:, None]
-    touch_mask = onehot & (served_hit | do_insert)[:, None]
+    onehot = upd_way[..., None] == wr                        # [..., C, W]
+    ins_mask = onehot & do_insert[..., None]
+    inval_mask = (way_hit[..., None] == wr) & inval[..., None]
+    touch_mask = onehot & (served_hit | do_insert)[..., None]
 
     new_tags = torch.where(inval_mask, -1,
-                           torch.where(ins_mask, line[:, None], tags))
+                           torch.where(ins_mask, line[..., None], tags))
     new_lru = torch.where(touch_mask, tick, lru)
-    new_owner = torch.where(ins_mask, is_accel[:, None].to(torch.int32),
+    new_owner = torch.where(ins_mask, is_accel[..., None].to(torch.int32),
                             owner)
-    new_sig = torch.where(ins_mask, sig_e[:, None].to(torch.int32), sig)
-    new_reused = torch.where(onehot & (served_hit & ~prefetch)[:, None],
+    new_sig = torch.where(ins_mask, sig_e[..., None].to(torch.int32), sig)
+    new_reused = torch.where(onehot & (served_hit & ~prefetch)[..., None],
                              True, torch.where(ins_mask, False, reused))
 
     # --- SHIP table updates (batched per round; integer adds) -----------
@@ -291,11 +367,12 @@ def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
     upd_idx = torch.where(inc, hit_sig, vic_sig).to(torch.int64)
     delta = torch.where(inc, 1, torch.where(dec, -1, 0)).to(torch.int32)
     own_accel = torch.where(inc, hit_owner, vic_owner) == 1
-    to_accel_tbl = own_accel & (not shared)
-    shct_core = torch.clamp(shct_core0.index_add(
-        0, upd_idx, torch.where(to_accel_tbl, 0, delta)), 0, cmax)
-    shct_accel = torch.clamp(shct_accel0.index_add(
-        0, upd_idx, torch.where(to_accel_tbl, delta, 0)), 0, cmax)
+    to_accel_tbl = own_accel & (~shared if isinstance(shared, torch.Tensor)
+                                else not shared)
+    shct_core = torch.clamp(_table_add(
+        shct_core0, upd_idx, torch.where(to_accel_tbl, 0, delta)), 0, cmax)
+    shct_accel = torch.clamp(_table_add(
+        shct_accel0, upd_idx, torch.where(to_accel_tbl, delta, 0)), 0, cmax)
 
     v = valid & ~prefetch
     ca = is_accel
@@ -344,6 +421,49 @@ def simulate_epoch(cfg: LLCConfig, state: LLCState, line_m, meta_m,
         percore.index_add_(0, src, torch.stack([ch, cm], 1).to(torch.int32))
     stats = counts.sum(1, dtype=torch.int32)
     return LLCState(*rows, tick, *shct), stats, percore
+
+
+def simulate_epoch_lanes(cfg: LLCConfig, knobs: LaneKnobs, states: LLCState,
+                         line_b, meta_b, device="cuda"
+                         ) -> Tuple[LLCState, torch.Tensor, torch.Tensor]:
+    """Lane-batched epoch chunk: L policies advance through one round
+    loop whose every op carries the lane axis.
+
+    ``cfg`` supplies the shared geometry (any lane's config: the caller
+    guarantees ``geometry_key`` agreement); ``knobs`` (``lane_knobs``) and
+    ``states`` (``stack_states``) carry a leading lane axis, as do the
+    [L, R, S] int32 event blocks.  Rounds a lane does not use are padding
+    (line -1, meta 0): no-ops for its cache content.  Returns (states,
+    stats [L, len(STAT_NAMES)] int32, percore [L, NUM_CORES, 2] int32) on
+    the states' device, enqueued only."""
+    dev = _device.resolve(device)
+    if states.tags.device.type != dev.type:
+        raise ValueError(f"LLC states are on {states.tags.device}, "
+                         f"not {dev}")
+    line_b = torch.as_tensor(line_b, device=dev)
+    meta_b = torch.as_tensor(meta_b, device=dev)
+    n_lanes, s = line_b.shape[0], cfg.num_sets
+    sampler_j = _sampler(cfg, dev)
+    rows = (states.tags, states.lru, states.owner, states.sig, states.reused)
+    shct = (states.shct_core, states.shct_accel)
+    counts = torch.zeros((len(STAT_NAMES), n_lanes, s), dtype=torch.int32,
+                         device=dev)
+    percore = torch.zeros((n_lanes * NUM_CORES, 2), dtype=torch.int32,
+                          device=dev)
+    core_offs = torch.arange(n_lanes, device=dev)[:, None] * NUM_CORES
+    tick = states.tick
+    for r in range(line_b.shape[1]):
+        tick = tick + 1
+        rows, shct, masks, ch, cm, src = round_transition(
+            cfg, knobs, sampler_j, rows, shct, line_b[:, r], meta_b[:, r],
+            tick[:, None, None])
+        counts += masks
+        percore.index_add_(0, (src + core_offs).reshape(-1),
+                           torch.stack([ch, cm], -1).reshape(-1, 2).to(
+                               torch.int32))
+    stats = counts.sum(2, dtype=torch.int32).T
+    return (LLCState(*rows, tick, *shct), stats,
+            percore.reshape(n_lanes, NUM_CORES, 2))
 
 
 def occupancy(state: LLCState) -> Tuple[int, int]:

@@ -15,13 +15,15 @@ Arbitration:
 The APM (apm.py) modulates HyDRA's per-epoch reuse thresholds; plain "-D"
 policies use the §III-C1 within-epoch switch point instead.
 
-Entry points (``load_lern``, ``trace_clusters``, ``Lane``,
-``calibrated_deadline``) take ``device=`` and default to the card.
+Entry points (``load_lern``, ``load_lern_family``, ``trace_clusters``,
+``Lane``, ``drive_lane``, ``calibrated_deadline``) take ``device=`` and
+default to the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import pickle
 import struct
@@ -37,8 +39,8 @@ from . import lern as lern_mod
 from . import llc as llc_mod
 from . import lrpt as lrpt_mod
 from .apm import APMState, bypass_mask
-from .dram import DramModel
-from .lern import LernModel, train_model_batched
+from .dram import DDR3_1600, DramModel
+from .lern import LernModel, train_family_batched, train_model_batched
 from .llc import A_HINT, A_RAND, HW_SCALE, LLCConfig, build_rounds, pack_meta
 from .lrpt import lrpt_train_hash
 from .policies import Policy
@@ -121,13 +123,20 @@ _CACHE_MAGIC = b"HYC1"
 MISS = object()
 
 
+def _faults():
+    # lazy: repro_torch.exp.faults is stdlib-only, but core must stay
+    # importable without the exp package initialized (import cycles)
+    from ..exp import faults
+    return faults
+
+
 def _seal(obj) -> bytes:
     payload = pickle.dumps(obj)
     return (_CACHE_MAGIC + struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
             + payload)
 
 
-def _quarantine(path: str) -> None:
+def _quarantine(path: str, reason: str) -> None:
     qdir = os.path.join(cache_dir(), "quarantine")
     os.makedirs(qdir, exist_ok=True)
     dst = os.path.join(qdir, os.path.basename(path) + "." + uuid.uuid4().hex[:8])
@@ -138,38 +147,82 @@ def _quarantine(path: str) -> None:
             os.remove(path)
         except OSError:
             pass
+        dst = None
+    _faults().log_event("quarantine", path=path, reason=reason,
+                        quarantined_to=dst)
+
+
+def _mangle(path: str, spec) -> None:
+    """Apply an injected cache_read fault to the entry on disk, so the
+    recovery under test is the real quarantine/recompute machinery."""
+    try:
+        size = os.path.getsize(path)
+        if spec.kind == "truncate":
+            with open(path, "r+b") as f:
+                f.truncate(max(1, size // 2))
+        elif spec.kind == "corrupt":
+            with open(path, "r+b") as f:
+                f.seek(max(0, size - 1))
+                b = f.read(1)
+                f.seek(max(0, size - 1))
+                f.write(bytes([(b[0] if b else 0) ^ 0xFF]))
+    except OSError:
+        pass
 
 
 def cache_load(path: str):
     """Read one envelope cache entry.  Returns :data:`MISS` when the
     file is absent or invalid; invalid entries are quarantined first."""
+    spec = _faults().fire("cache_read", key=os.path.basename(path))
+    if spec is not None and os.path.exists(path):
+        _mangle(path, spec)
     try:
         with open(path, "rb") as f:
             blob = f.read()
     except OSError:
         return MISS
     if len(blob) < 8 or blob[:4] != _CACHE_MAGIC:
-        _quarantine(path)
+        _quarantine(path, "bad_magic")
         return MISS
     (crc,) = struct.unpack("<I", blob[4:8])
     payload = blob[8:]
     if (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
-        _quarantine(path)
+        _quarantine(path, "crc_mismatch")
         return MISS
     try:
         return pickle.loads(payload)
     except Exception:  # any unpickling failure is a damaged entry
-        _quarantine(path)
+        _quarantine(path, "unpickle_error")
         return MISS
 
 
 def _atomic_dump(obj, path: str) -> None:
     """Durably commit one envelope cache entry: write to a unique temp
     file, fsync it, rename over ``path`` -- a kill at any instant leaves
-    either the old entry or the new one, never a torn one."""
+    either the old entry or the new one, never a torn one.  An injected
+    ``cache_dump`` fault damages the blob (corrupt/truncate) or stops
+    after half the temp file (torn), as in the JAX package."""
+    blob = _seal(obj)
+    spec = _faults().fire("cache_dump", key=os.path.basename(path))
     tmp = path + f".{os.getpid()}.{uuid.uuid4().hex}.tmp"
+    if spec is not None:
+        if spec.kind == "corrupt":
+            bad = (struct.unpack("<I", blob[4:8])[0]
+                   ^ 0x5EED0000 ^ _faults().plan_seed()) & 0xFFFFFFFF
+            if struct.pack("<I", bad) == blob[4:8]:
+                bad ^= 1
+            blob = blob[:4] + struct.pack("<I", bad) + blob[8:]
+        elif spec.kind == "truncate":
+            blob = blob[:max(9, len(blob) // 2)]
+        elif spec.kind == "torn":
+            with open(tmp, "wb") as f:
+                f.write(blob[:max(1, len(blob) // 2)])
+                f.flush()
+                os.fsync(f.fileno())
+            raise _faults().InjectedFault(
+                f"injected torn write at {os.path.basename(path)}")
     with open(tmp, "wb") as f:
-        f.write(_seal(obj))
+        f.write(blob)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
@@ -232,9 +285,12 @@ def load_trace(config: str, subsample_target: int) -> Trace:
 
 
 def _lern_tag() -> str:
-    """Cache-key suffix for LERN artifacts (the fit engine's version)."""
-    lern_mod.resolve_engine()
-    return "v4"
+    """Cache-key suffix for LERN artifacts: ``v4`` for the default
+    (segmented) fit engine; a non-default engine (``REPRO_LERN_FIT``,
+    ``lern.fit_engine_override``) lands under its own tag, since the two
+    engines' centres differ by FP reassociation."""
+    eng = lern_mod.resolve_engine()
+    return "v4" if eng == "segmented" else f"v4-{eng}"
 
 
 def load_lern(config: str, lrpt_variant: str, subsample_target: int,
@@ -250,6 +306,69 @@ def load_lern(config: str, lrpt_variant: str, subsample_target: int,
                                 seed=seed, device=device)
     _atomic_dump(model, path)
     return model
+
+
+# Family-fit regime bound for the BUCKETED engine: one family fit
+# amortizes the fixed per-fit cost that dominates *tiny* traces; with
+# padded capacity buckets, big traces train individually.  The
+# flat-segmented engine has no padding, so the gate is lifted there.
+FAMILY_MAX_ACCESSES = 64_000
+
+
+def family_cap() -> float:
+    """Max trace size eligible for family-batched training under the
+    active LERN fit engine (unbounded for segmented)."""
+    if lern_mod.resolve_engine() == "segmented":
+        return float("inf")
+    return FAMILY_MAX_ACCESSES
+
+
+def load_lern_family(configs, lrpt_variant: str, subsample_target: int,
+                     seed: int = 0, family_only: bool = False,
+                     device="cuda") -> Dict[str, LernModel]:
+    """Train every *uncached* config's LERN model on ``device``,
+    family-batching the small ones into one fit.
+
+    ``lern.train_family_batched`` equals ``train_model_batched`` per
+    config, so results land under the same cache keys ``load_lern``
+    reads.  Traces above ``family_cap()`` train alone;
+    ``family_only=True`` skips them (the sweep pre-pass leaves them to
+    the group tasks)."""
+    out: Dict[str, LernModel] = {}
+    missing = []
+    for config in configs:
+        key = (f"{config}-{lrpt_variant}-ss{subsample_target}-s{seed}-"
+               f"{_lern_tag()}")
+        path = _cache_path("lern", key)
+        v = cache_load(path)
+        if v is not MISS:
+            out[config] = v
+        else:
+            missing.append((config, path))
+    if missing:
+        hash_fn = lrpt_train_hash(lrpt_variant)
+        traces = [load_trace(c, subsample_target) for c, _ in missing]
+        cap = family_cap()
+        small = [i for i, tr in enumerate(traces)
+                 if tr.num_accesses <= cap]
+        if len(small) > 1:
+            models = train_family_batched(
+                [traces[i] for i in small], hash_fn=hash_fn, seed=seed,
+                device=device)
+            for i, model in zip(small, models):
+                config, path = missing[i]
+                _atomic_dump(model, path)
+                out[config] = model
+        else:
+            small = []
+        for i, (config, path) in enumerate(missing):
+            if i in small or family_only:
+                continue
+            model = train_model_batched(traces[i], hash_fn=hash_fn,
+                                        seed=seed, device=device)
+            _atomic_dump(model, path)
+            out[config] = model
+    return out
 
 
 def clusters_from_model(model: LernModel, trace: Trace, lrpt_variant: str
@@ -794,3 +913,19 @@ def calibrated_deadline(config: str, p: SimParams, dram: DramModel,
     t0 = res.completion_cycles[0] if res.completion_cycles else 10**9
     _atomic_dump(t0, path)
     return t0 * p.deadline_factor
+
+
+def result_cache_path(config: str, mix: str, policy: Policy,
+                      params: Optional[SimParams] = None,
+                      dram: DramModel = DDR3_1600, **kw) -> str:
+    """Disk-cache location of one simulated point, keyed by all inputs
+    (the JAX package's key, under the port's own cache root).  Shared by
+    the sweep's dedup layer and anything that wants a pure cache read of
+    a finished point."""
+    p = params or SimParams()
+    # "v": engine-semantics version (v2: exact integer when_keys)
+    key = json.dumps({"c": config, "m": mix, "pol": dataclasses.asdict(policy),
+                      "par": dataclasses.asdict(p), "d": dram.name, "v": 2,
+                      "kw": {k: str(v) for k, v in kw.items()}},
+                     sort_keys=True, default=str)
+    return _cache_path("sim", hashlib.md5(key.encode()).hexdigest())

@@ -1,0 +1,345 @@
+"""Batched multi-policy sweep engine, host path.
+
+The paper's evaluation is a cross-product -- policies x configs x mixes
+x DRAM/LLC variants -- and this module batches it at two levels:
+
+* **Within a (config, mix, params, dram) group** all requested policies
+  are simulated in one pass: the trace, LERN clusters and core streams are
+  loaded once (``sim.load_artifacts``), each policy advances as a
+  ``sim.Lane``, and every epoch's LLC round chunks go through one
+  lane-batched round loop (``llc.simulate_epoch_lanes``) instead of one
+  loop per policy.  Lanes whose LLC geometry diverges are partitioned
+  into geometry-compatible sub-batches.  Results equal the sequential
+  ``sim.drive_lane`` bitwise.
+* **Across groups** ``map_points`` runs the groups in turn, with the sim
+  disk cache as the dedup layer: cached points are skipped up front,
+  duplicate points are computed once, and finished groups are written
+  back with atomic renames.
+
+Not ported yet (ROADMAP.md Queue 1): the fused device-resident epoch
+engine and the geometry-bucketed whole-sweep engine (item 10), and the
+spawn process pool with its retry, respawn and watchdog (item 11).
+Asking for them raises ``NotImplementedError``.
+
+Every entry point takes ``device=`` (default: the card) for the LLC
+state and the LERN fits.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from . import llc
+from . import sim
+from .dram import DramModel, default_model
+from .policies import Policy
+
+# Default lane width of one lane-batched round loop.
+MAX_LANES = 4
+# A failing group task is retried TASK_RETRIES times with exponential
+# backoff (base RETRY_BACKOFF seconds, doubled per attempt, capped at 5 s)
+# before a last attempt on the host engine.
+TASK_RETRIES = int(os.environ.get("REPRO_TASK_RETRIES", "2"))
+RETRY_BACKOFF = float(os.environ.get("REPRO_RETRY_BACKOFF", "0.25"))
+
+_ENGINES = ("auto", "host")
+
+
+def _faults():
+    # lazy: fault injection and run reporting live in repro_torch.exp
+    from ..exp import faults
+    return faults
+
+
+def _check_engine(engine: str) -> None:
+    if engine in ("fused", "bucketed"):
+        raise NotImplementedError(
+            f"engine={engine!r}: the device-resident epoch engines are not "
+            "ported yet (ROADMAP.md Queue 1 item 10); use engine='host'")
+    if engine not in _ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+
+
+def point_key(path: str) -> str:
+    """Manifest key of one sweep point: the md5 basename of its sim
+    result cache path (stable across hosts and cache roots)."""
+    base = os.path.basename(path)
+    return base[:-4] if base.endswith(".pkl") else base
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPoint:
+    """One cell of the evaluation cross-product."""
+    config: str
+    mix: str
+    policy: Policy
+    params: Optional[sim.SimParams] = None
+    dram: DramModel = dataclasses.field(default_factory=default_model)
+
+    def resolved_params(self) -> sim.SimParams:
+        return self.params or sim.SimParams()
+
+    def cache_path(self) -> str:
+        return sim.result_cache_path(self.config, self.mix, self.policy,
+                                     self.resolved_params(), self.dram)
+
+
+# ---------------------------------------------------------------------------
+# one-pass multi-policy group simulation
+# ---------------------------------------------------------------------------
+def simulate_group(config: str, mix: str, pols: Sequence[Policy],
+                   params: Optional[sim.SimParams] = None,
+                   dram: Optional[DramModel] = None,
+                   deadline_cycles: Optional[float] = None,
+                   core_traffic: bool = True, engine: str = "host",
+                   device="cuda") -> List[sim.SimResult]:
+    """Simulate several policies on one (config, mix) trace in one pass
+    on ``device``; results in ``pols`` order, each bitwise the sequential
+    ``sim.drive_lane`` of that policy alone.  ``engine`` is ``"host"``
+    (``"auto"`` means the same until the fused engine is ported)."""
+    _check_engine(engine)
+    dev = _device.resolve(device)
+    p = params or sim.SimParams()
+    if dram is None:
+        dram = default_model()
+    if deadline_cycles is None:
+        deadline_cycles = sim.calibrated_deadline(config, p, dram,
+                                                  device=dev)
+    art = sim.load_artifacts(config, mix, p, core_traffic)
+    lanes = [sim.Lane(config, mix, pol, p, dram, float(deadline_cycles), art,
+                      core_traffic, device=dev) for pol in pols]
+    # partition into geometry-compatible sub-batches (stable order)
+    batches: Dict[Tuple, List[sim.Lane]] = {}
+    for lane in lanes:
+        batches.setdefault(llc.geometry_key(lane.llc_cfg), []).append(lane)
+    for batch in batches.values():
+        _drive_lanes(batch, dev)
+    return [lane.result() for lane in lanes]
+
+
+def _drive_lanes(lanes: List[sim.Lane], dev: torch.device) -> None:
+    """Advance a geometry-compatible batch of lanes to completion.
+
+    Each epoch: every active lane builds its event list on the host, the
+    per-lane round chunks are padded to a common [L, R, S] block, and one
+    ``simulate_epoch_lanes`` call advances all LLC states.  Padded rounds
+    are invalid events (meta 0) -- no-ops for cache content, so per-lane
+    results match the unpadded sequential engine exactly.  Finished lanes
+    drop out; a lone survivor finishes in ``sim.drive_lane`` from its
+    current LLC state.
+    """
+    cfg0 = lanes[0].llc_cfg
+    num_sets = cfg0.num_sets
+    pending = [lane for lane in lanes if lane.active]
+    if not pending:
+        return
+    knobs = llc.lane_knobs([lane.llc_cfg for lane in pending], dev)
+    states = llc.stack_states(cfg0, len(pending), dev)
+
+    while pending:
+        if len(pending) == 1:
+            sim.drive_lane(pending[0], state=llc.lane_state(states, 0),
+                           device=dev)
+            return
+        n_lanes = len(pending)
+        evs = [lane.begin_epoch() for lane in pending]
+        chunk_lists = [list(llc.build_rounds(cfg0, *ev))
+                       if ev is not None else [] for ev in evs]
+        st_sum, pc_sum = 0, 0
+        n_chunks = max((len(cl) for cl in chunk_lists), default=0)
+        for c in range(n_chunks):
+            r_pad = max(cl[c][0].shape[0]
+                        for cl in chunk_lists if len(cl) > c)
+            line_b = np.full((n_lanes, r_pad, num_sets), -1, np.int32)
+            meta_b = np.zeros((n_lanes, r_pad, num_sets), np.int32)
+            for i, cl in enumerate(chunk_lists):
+                if len(cl) > c:
+                    lm, mm = cl[c]
+                    line_b[i, :lm.shape[0]] = lm
+                    meta_b[i, :mm.shape[0]] = mm
+            states, st_b, pc_b = llc.simulate_epoch_lanes(
+                cfg0, knobs, states, line_b, meta_b, device=dev)
+            st_sum, pc_sum = st_sum + st_b, pc_sum + pc_b
+        if n_chunks:
+            stats = st_sum.cpu().numpy().astype(np.int64)
+            percore = pc_sum.cpu().numpy().astype(np.int64)
+        else:
+            stats = np.zeros((n_lanes, len(llc.STAT_NAMES)), np.int64)
+            percore = np.zeros((n_lanes, llc.NUM_CORES, 2), np.int64)
+        for i, lane in enumerate(pending):
+            lane_state = (llc.lane_state(states, i)
+                          if lane.p.record_occupancy else None)
+            lane.finish_epoch(stats[i], percore[i], llc_state=lane_state)
+        # drop finished lanes so survivors stop paying for padding
+        still = [i for i, lane in enumerate(pending) if lane.active]
+        if len(still) < n_lanes:
+            pending = [pending[i] for i in still]
+            if pending:
+                keep = torch.as_tensor(still, device=dev)
+                knobs = llc.select_knobs(knobs, keep)
+                states = llc.select_states(states, keep)
+
+
+# ---------------------------------------------------------------------------
+# cross-group orchestration (disk-cache dedup)
+# ---------------------------------------------------------------------------
+def _params_key(p: sim.SimParams, dram: DramModel) -> str:
+    return json.dumps({"par": dataclasses.asdict(p), "d": dram.name},
+                      sort_keys=True, default=str)
+
+
+def _prepare_lern(tasks, dev: torch.device) -> None:
+    """Family-batched LERN training for every uncached (variant, trace
+    size): one fit for a whole config family up front, so group tasks
+    only read the cache (under the bucketed engine only the small traces,
+    ``sim.family_cap``; the rest train inside their groups)."""
+    fam: Dict[Tuple, List[str]] = {}
+    for config, _mix, pols, params, _dram, _paths in tasks:
+        for pol in pols:
+            if pol.accel_predictor == "lern":
+                key = (pol.lrpt_variant, params.subsample_target)
+                configs = fam.setdefault(key, [])
+                if config not in configs:
+                    configs.append(config)
+    for (variant, sub), configs in fam.items():
+        sim.load_lern_family(configs, variant, sub, family_only=True,
+                             device=dev)
+
+
+def _group_task(task, engine: str, dev: torch.device) -> List[sim.SimResult]:
+    """Simulate one policy group and persist each point."""
+    config, mix, pols, params, dram, paths = task
+    # named injection site: raise faults land here to exercise the retry
+    _faults().fire("task", key=f"{config}|{mix}")
+    results = simulate_group(config, mix, list(pols), params, dram,
+                             engine=engine, device=dev)
+    for res, path in zip(results, paths):
+        sim._atomic_dump(res, path)
+    return results
+
+
+def _plan_tasks(points: Sequence[SweepPoint], max_lanes: int,
+                cache: bool = True):
+    """Cache reads (when ``cache``), duplicate-point dedup, grouping by
+    (config, mix, params, dram) and chunking into <= ``max_lanes`` policy
+    lanes.
+
+    Returns ``(results, tasks, task_idxs, task_keys, seen_paths)`` --
+    ``results`` pre-filled with cache hits, ``tasks`` as ``(config, mix,
+    pols, params, dram, paths)`` tuples (empty paths when ``cache`` is
+    off, so the group task skips the dump), ``task_keys`` the per-task
+    manifest point keys.  Corrupt cache entries are quarantined and the
+    point recomputed (``sim.cache_load``)."""
+    flt = _faults()
+    results: List[Optional[sim.SimResult]] = [None] * len(points)
+    seen_paths: Dict[str, List[int]] = {}
+    groups: Dict[str, List[Tuple[int, SweepPoint, str]]] = {}
+    for idx, pt in enumerate(points):
+        path = pt.cache_path()
+        if path in seen_paths:          # duplicate point: fill from twin
+            seen_paths[path].append(idx)
+            continue
+        seen_paths[path] = [idx]
+        if cache:
+            v = sim.cache_load(path)
+            if v is not sim.MISS:
+                results[idx] = v
+                flt.point_done(point_key(path), source="cache")
+                continue
+        key = (f"{pt.config}|{pt.mix}|"
+               f"{_params_key(pt.resolved_params(), pt.dram)}")
+        groups.setdefault(key, []).append((idx, pt, path))
+
+    tasks = []
+    task_idxs: List[List[int]] = []
+    task_keys: List[List[str]] = []
+    for members in groups.values():
+        first = members[0][1]
+        params, dram = first.resolved_params(), first.dram
+        for lo in range(0, len(members), max_lanes):
+            chunk = members[lo:lo + max_lanes]
+            tasks.append((first.config, first.mix,
+                          tuple(pt.policy for _, pt, _ in chunk),
+                          params, dram,
+                          tuple(path for _, _, path in chunk) if cache
+                          else ()))
+            task_idxs.append([idx for idx, _, _ in chunk])
+            task_keys.append([point_key(path) for _, _, path in chunk])
+    return results, tasks, task_idxs, task_keys, seen_paths
+
+
+def _fill_twins(results, seen_paths) -> None:
+    for _path, idxs in seen_paths.items():
+        for idx in idxs[1:]:
+            results[idx] = results[idxs[0]]
+
+
+def _run_task_inline(task, engine: str, retries: int,
+                     dev: torch.device) -> Tuple:
+    """Resilient execution of one group task: retry with exponential
+    backoff, then a final attempt on the host engine.  Returns (results,
+    attempts, engine)."""
+    flt = _faults()
+    attempts = 0
+    while True:
+        attempts += 1
+        eng = engine if attempts <= retries else "host"
+        try:
+            return _group_task(task, eng, dev), attempts, eng
+        except NotImplementedError:
+            raise
+        except Exception as e:
+            if attempts > retries:
+                raise
+            flt.log_event("task_retry", task=f"{task[0]}|{task[1]}",
+                          attempt=attempts, error=str(e)[:200])
+            time.sleep(min(RETRY_BACKOFF * 2 ** (attempts - 1), 5.0))
+
+
+def map_points(points: Sequence[SweepPoint], jobs: int = 1,
+               max_lanes: int = MAX_LANES, engine: str = "host",
+               report=None, retries: Optional[int] = None,
+               device="cuda") -> List[sim.SimResult]:
+    """Evaluate a list of sweep points on ``device``, batched, with the
+    sim disk cache as the dedup layer.
+
+    Cached points are loaded and skipped; duplicate points run once; the
+    rest are grouped by (config, mix, params, dram), chunked into <=
+    ``max_lanes`` policy lanes and run in turn (``jobs`` must be 1: the
+    process pool is ROADMAP.md Queue 1 item 11).  Uncached LERN models
+    train first, family-batched.  Every finished point is written to the
+    cache atomically; the LERN fit engine is the ambient one
+    (``lern.fit_engine_override``).  ``report`` (a ``faults.RunReport``)
+    receives per-point records
+    and fault/recovery events; a failing group retries ``retries`` times
+    (default ``REPRO_TASK_RETRIES``).  Returns results in ``points``
+    order."""
+    _check_engine(engine)
+    if jobs > 1:
+        raise NotImplementedError(
+            f"jobs={jobs}: the process pool (retry, respawn, watchdog) is "
+            "not ported yet (ROADMAP.md Queue 1 item 11); use jobs=1")
+    dev = _device.resolve(device)
+    flt = _faults()
+    retries = TASK_RETRIES if retries is None else retries
+    with flt.activate(), flt.reporting(report):
+        results, tasks, task_idxs, task_keys, seen_paths = \
+            _plan_tasks(points, max_lanes, cache=True)
+        if tasks:
+            _prepare_lern(tasks, dev)
+            for task, idxs, keys in zip(tasks, task_idxs, task_keys):
+                rs, n_att, eng = _run_task_inline(task, engine, retries, dev)
+                for idx, res in zip(idxs, rs):
+                    results[idx] = res
+                for key in keys:
+                    flt.point_done(key, source="computed", engine=eng,
+                                   attempts=n_att)
+        _fill_twins(results, seen_paths)
+    return results  # type: ignore[return-value]

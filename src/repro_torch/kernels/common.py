@@ -53,3 +53,19 @@ def dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for t in range(1, a.shape[-1]):
         out = fma32(a[..., t], b[..., t], out)
     return out
+
+
+def dot_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_d a[..., d] * b[..., d]`` in the arithmetic of XLA's CPU
+    matrix product (``x @ centers.T``), measured on the JAX package: for
+    D < 4 a fused multiply-add chain in ascending d (as ``dot_fma``); for
+    D >= 4 four accumulators, lane l taking d = l, l + 4, ... by fused
+    multiply-add, then ``(l0 + l1) + (l2 + l3)`` -- at D = 4 the pairwise
+    sum of the four products.  Measured equal for D = 1..4, 8 and 16."""
+    d = a.shape[-1]
+    if d < 4:
+        return dot_fma(a, b)
+    lanes = [a[..., t] * b[..., t] for t in range(4)]
+    for t in range(4, d):
+        lanes[t % 4] = fma32(a[..., t], b[..., t], lanes[t % 4])
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])

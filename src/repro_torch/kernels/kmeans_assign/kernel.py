@@ -1,5 +1,5 @@
-"""ctypes binding of ``csrc/kmeans_assign_segmented.cu`` (built by
-``kernels._build`` at first use)."""
+"""ctypes bindings of ``csrc/kmeans_assign_segmented.cu`` and
+``csrc/kmeans_assign.cu`` (built by ``kernels._build`` at first use)."""
 from __future__ import annotations
 
 import ctypes
@@ -8,29 +8,47 @@ import torch
 
 from .. import _build
 
-_FN = None
+_FNS = {}
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("kmeans_assign_segmented").kmeans_assign_segmented
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+def _fn(name: str, n_ptr: int, n_int: int):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
-def launch(x: torch.Tensor, centers: torch.Tensor, seg: torch.Tensor,
-           out: torch.Tensor) -> None:
-    """Enqueue the kernel on the current stream (shapes checked by the
-    caller); raise if the launch was refused."""
+def _check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_segmented(x: torch.Tensor, centers: torch.Tensor,
+                     seg: torch.Tensor, out: torch.Tensor) -> None:
+    """Enqueue the segmented kernel on the current stream (shapes checked
+    by the caller); raise if the launch was refused."""
     p, d = x.shape
     s, k, _ = centers.shape
-    err = _fn()(x.data_ptr(), centers.data_ptr(), seg.data_ptr(),
-                out.data_ptr(), p, s, k, d,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"kmeans_assign_segmented launch failed: "
-                           f"cudaError {err}")
+    _check("kmeans_assign_segmented", _fn("kmeans_assign_segmented", 4, 4)(
+        x.data_ptr(), centers.data_ptr(), seg.data_ptr(), out.data_ptr(),
+        p, s, k, d, _stream(x)))
+
+
+def launch_dense(x: torch.Tensor, centers: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """Enqueue the dense kernel on the current stream: x [B, N, D],
+    centers [B, K, D] (contiguous, f32 or bf16), out [B, N] int32; raise
+    if the launch was refused."""
+    b, n, d = x.shape
+    k = centers.shape[1]
+    _check("kmeans_assign", _fn("kmeans_assign", 3, 5)(
+        x.data_ptr(), centers.data_ptr(), out.data_ptr(), b, n, k, d,
+        int(x.dtype == torch.bfloat16), _stream(x)))

@@ -14,6 +14,17 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 written as JSON.  Regenerate the committed golden file with
                 ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
                 golden src/repro_torch/golden/config3_moti2_full.json``.
+* ``system`` -- the ``tests/test_system.py`` spec through ``exp.run`` with
+                ``ExecPlan(engine="host", fit_engine="bucketed")`` and the
+                bucketed engine's ``prediction_accuracy`` on config7, as
+                JSON: what ``chip_smoke.py`` phases 6 and 7 hold the card
+                to.  Regenerate the committed file with
+                ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
+                system src/repro_torch/golden/config3_moti2_full_system.json``.
+* ``sweep_exp`` -- ``sweep.simulate_group(engine="host")`` results and
+                ``exp.run`` records at the tiny point on both fit engines
+                (``tests/test_torch_sweep.py``, ``tests/test_torch_exp.py``),
+                pickled.
 """
 import dataclasses
 import json
@@ -30,6 +41,43 @@ SMALL = dict(n_inputs=1, max_epochs=60, subsample_target=50_000)
 SMALL_DEADLINE = 2e6
 FULL = dict(n_inputs=3, max_epochs=1500)
 GOLDEN_POLICIES = ("hydra", "arp-cs-as-d")
+# the tests/test_system.py spec
+SYSTEM_POLICIES = ("fifo-nb", "arp-nb", "arp-cs-as", "arp-cs-as-d", "hydra",
+                   "arp-al")
+SYSTEM_PLAN = dict(engine="host", fit_engine="bucketed")
+ACCURACY = dict(config="config7", variant="full", subsample_target=300_000)
+# tests/test_sweep.py's point
+TINY = dict(n_inputs=1, max_epochs=40, subsample_target=50_000)
+TINY_DEADLINE = 2e6
+EXP_POLICIES = ("fifo-nb", "arp-nb", "hydra", "arp-cs-as-d", "arp-al")
+
+
+def expansion_spec(exp):
+    """A spec with every kind of axis: two configs, policy transforms,
+    a params preset and a SimParams override axis (``exp`` is either
+    package's experiment API)."""
+    return exp.ExperimentSpec.grid(
+        config=["config1", "config3"], mix="moti2",
+        policy=["fifo-nb", ("hydra", exp.online(50)),
+                ("arp-cs-as", exp.way_partition(0x00FF, 0xFF00)),
+                ("hydra", exp.lrpt("loptv3")),
+                ("hydra", exp.with_apm(alpha=0.2, t_b=0.7))],
+        params="smoke", llc_size_bytes=[1 << 19, 1 << 20])
+
+
+def expansion(exp, sweep):
+    """Each point of ``expansion_spec`` as (spec dict, axis row, point
+    key)."""
+    return [(pt.spec_dict(), row, sweep.point_key(pt.cache_path()))
+            for pt, row in expansion_spec(exp).expand()]
+# (config, mix, policies, max_epochs) groups of the sweep child: a full
+# four-lane roster, lanes that finish at different epochs, and a
+# geometry split (SHIP_LARGE tables)
+SWEEP_GROUPS = (
+    ("config1", "moti2", ("fifo-nb", "hydra", "arp-cs-as-d", "arp-al"), 40),
+    ("config1", "moti1", ("arp-nb", "fifo-nb"), 200),
+    ("config1", "moti1", ("arp-cs-as", "arp-cs-as-large"), 40),
+)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LERN_FIELDS = ("uniq", "rc_cluster", "ri_cluster", "n_uniq", "rc_centers",
                "ri_centers", "features_ri")
@@ -71,6 +119,30 @@ def golden_point(res) -> dict:
             "completion_cycles": list(res.completion_cycles)}
 
 
+def history_digest(history: dict) -> dict:
+    """Per history series: [length, exact sum, min, max]."""
+    import math
+    return {k: [len(v), math.fsum(v), min(v, default=0.0),
+                max(v, default=0.0)] for k, v in sorted(history.items())}
+
+
+def system_point(res) -> dict:
+    """The fields of one SimResult that the system golden file keeps."""
+    return dict(golden_point(res), core_hit_rate=res.core_hit_rate,
+                accel_hit_rate=res.accel_hit_rate,
+                deadline_cycles=res.deadline_cycles,
+                history=history_digest(res.history))
+
+
+def exp_record(row) -> dict:
+    """One exp.run row as plain data (the point spec and the result as
+    dicts)."""
+    out = {k: v for k, v in row.items() if k not in ("point", "result")}
+    out["point"] = row["point"].spec_dict()
+    out["result"] = dataclasses.asdict(row["result"])
+    return out
+
+
 def _child_main(mode: str, out: str) -> None:
     import jax
     import jax.experimental
@@ -102,6 +174,50 @@ def _child_main(mode: str, out: str) -> None:
         with open(out, "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
             f.write("\n")
+    elif mode == "system":
+        from repro import exp
+        from repro.core import lern
+        rs = exp.run(exp.ExperimentSpec.grid(
+            config=CONFIG, mix=MIX, policy=list(SYSTEM_POLICIES),
+            params="full"), plan=exp.ExecPlan(**SYSTEM_PLAN))
+        points = {row["policy"]: system_point(row["result"])
+                  for row in rs.to_rows()}
+        with lern.fit_engine_override(SYSTEM_PLAN["fit_engine"]):
+            model = sim.load_lern(ACCURACY["config"], ACCURACY["variant"],
+                                  ACCURACY["subsample_target"])
+        tr = sim.load_trace(ACCURACY["config"], ACCURACY["subsample_target"])
+        doc = {"config": CONFIG, "mix": MIX, "params": FULL,
+               "dram": default_model().name, "plan": SYSTEM_PLAN,
+               "policies": list(SYSTEM_POLICIES), "points": points,
+               "lern_accuracy": dict(
+                   ACCURACY, fit_engine=SYSTEM_PLAN["fit_engine"],
+                   accuracy=lern.prediction_accuracy(model, tr))}
+        with open(out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+    elif mode == "sweep_exp":
+        from repro import exp
+        from repro.core import sweep
+        cache = os.environ["REPRO_CACHE"]
+        groups = []
+        for config, mix, names, epochs in SWEEP_GROUPS:
+            p = sim.SimParams(**dict(TINY, max_epochs=epochs))
+            grp = sweep.simulate_group(
+                config, mix, [policies.get(n) for n in names], p,
+                default_model(), deadline_cycles=TINY_DEADLINE,
+                engine="host")
+            groups.append([dataclasses.asdict(r) for r in grp])
+        recs = {"expansion": expansion(exp, sweep)}
+        for fit in ("segmented", "bucketed"):
+            # each engine its own cache: sim result keys omit the engine
+            sim.CACHE_DIR = os.path.join(cache, fit)
+            rs = exp.run(exp.ExperimentSpec.grid(
+                config=CONFIG, mix=MIX, policy=list(EXP_POLICIES),
+                params=sim.SimParams(**TINY)),
+                plan=exp.ExecPlan(engine="host", fit_engine=fit))
+            recs[fit] = [exp_record(row) for row in rs.to_rows()]
+        with open(out, "wb") as f:
+            pickle.dump({"sweep": groups, "exp": recs}, f)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
 
@@ -109,6 +225,37 @@ def _child_main(mode: str, out: str) -> None:
 # ---------------------------------------------------------------------------
 # the tests (the port runs on the CPU in this process)
 # ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """Run the port's CPU tests on one torch thread: the round loop's ops
+    are small, and intra-op threads only contend (several times slower
+    with the test workers side by side)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
+
+_SWEEP_EXP = {}
+
+
+def sweep_exp_reference(tmp_path_factory) -> dict:
+    """The ``sweep_exp`` child's results, run once per test process
+    (``tests/test_torch_sweep.py`` and ``tests/test_torch_exp.py`` share
+    them)."""
+    if not _SWEEP_EXP:
+        d = tmp_path_factory.mktemp("ref_sweep_exp")
+        out = str(d / "sweep_exp.pkl")
+        run_child("sweep_exp", out, str(d / "cache"))
+        with open(out, "rb") as f:
+            _SWEEP_EXP.update(pickle.load(f))
+    return _SWEEP_EXP
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     d = tmp_path_factory.mktemp("ref")
