@@ -19,7 +19,23 @@ port's two paths at full size, each with the kernels' launch counts set to
   fit_engine="bucketed")`` from an empty cache, held to
   ``src/repro_torch/golden/config3_moti2_full_system.json`` and the
   paper's orderings, then served again wholly from the cache; phase 7,
-  the bucketed engine's LERN prediction accuracy on ``config7``.
+  the bucketed engine's LERN prediction accuracy on ``config7``;
+* phase 8, prefill of qwen3-1.7b at full width (28 layers, weights from a
+  seeded ``torch.Generator``) through ``make_prefill_step(use_flash=True)``
+  at B=1, S=32768 and at B=4, S=4096; the forward is run again with
+  ``mha_plain`` in the kernel's place, each layer's kernel output on the
+  same q, k, v held to it per element, and the last-token logits are
+  held to that forward and to the model's other route (chunked and dense
+  attention); phase 8g, the model at full width
+  with 2 layers on ``convert.lm_numpy_params`` held to the JAX package's
+  logits (``src/repro_torch/golden/qwen3_1_7b_w2_serve.json``); phase 9,
+  the 28-layer model in ``ServeEngine`` with the ``HydraKVScheduler``
+  answering the serve launcher's 12 requests, stats equal to the golden.
+
+Phase 3c holds the flash attention kernel to its plain version at the
+``tests/test_kernels.py`` cases and one qwen3 layer, and times it beside
+``scaled_dot_product_attention``; phase 3b holds it again at phase 8's
+largest shape, in bf16 and in f32.
 
 Every phase raises on failure.  Without CUDA, or without the rest of the
 repository, it exits non-zero and prints no result.
@@ -42,10 +58,29 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "src", "repro_torch", "golden")
 GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
 SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
+LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
 CONFIG, MIX = "config3", "moti2"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 RTOL = 1e-6
+# The model-level tolerance (bf16): the JAX package's own flash and plain
+# routes differ by up to REF_GAP x max|logit| (measured on the CPU on the
+# golden's 2-layer model; tests/test_torch_models.py), so logits may differ
+# by twice that, with a floor of 2e-2 x max|logit|; argmax must be equal.
+REF_GAP = 0.011514
+LOGIT_RTOL = max(2 * REF_GAP, 2e-2)
+# The flash kernel against mha_plain at qwen3 shapes and on the 28-layer
+# model's own activations (bf16), per element: |kernel - plain| <=
+# FLASH_RTOL x |plain| + FLASH_ATOL.  FLASH_RTOL is one to two bf16 ulps;
+# on the H100 every output was within one ulp (atol needed 0), so
+# FLASH_ATOL is only a floor for outputs near zero, 1/55 of the mean
+# |out| of the later rows at S=32768.
+FLASH_RTOL = 2 ** -7
+FLASH_ATOL = 2 ** -12
+# tests/test_kernels.py::test_flash_attention
+FLASH_CASES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 384, 8, 1, 128),
+               (2, 128, 4, 4, 32))
 
 
 def log(*a):
@@ -90,11 +125,11 @@ class Capture:
         self.largest = largest
         setattr(module, name, self)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         if self.args is None or (self.largest and args[0].numel()
                                  > self.args[0].numel()):
             self.args = tuple(a.clone() for a in args)
-        return self.fn(*args)
+        return self.fn(*args, **kw)
 
     # the wrapper counts through its module-level name, which is this
     # object while the capture is installed
@@ -273,9 +308,9 @@ def compare(got, want, where: str) -> None:
 
 
 def kernel_row(name, route, source, replaces, launches, err, ms, plain_ms,
-               n_bytes, n_ops, library_ms, shape) -> dict:
+               n_bytes, n_ops, library_ms, shape, peak=FP32_FLOPS) -> dict:
     bound_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = n_ops / FP32_FLOPS * 1e3
+    bound_ops = n_ops / peak * 1e3
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
@@ -284,12 +319,351 @@ def kernel_row(name, route, source, replaces, launches, err, ms, plain_ms,
             "library_ms": library_ms, "shape": shape}
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: flash attention, prefill, the golden model, the engine
+# ---------------------------------------------------------------------------
+def sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def flash_inputs(b, s, h, hkv, d, dtype, dev, seed=42):
+    """tests/test_kernels.py's flash inputs: normal q [B, S, H, d], k, v
+    [B, S, Hkv, d] from ``default_rng(seed)``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+                 .to(dtype).to(dev) for shape in
+                 ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+
+def check_flash(fops, q, k, v, causal, what) -> float:
+    """The kernel against its plain version: atol 2e-5 in f32, 2e-2 in
+    bf16 (the tests/test_kernels.py bars)."""
+    import torch
+    atol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    a = fops.mha(q, k, v, causal=causal)
+    b = fops.mha_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((a.float() - b.float()).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"flash_attention kernel != plain ({what}): "
+                             f"max |diff| {err} > {atol}")
+    return err
+
+
+def flash_diff(got, want) -> dict:
+    """A bf16 kernel output against the plain version's, per element: max
+    |diff|, the most bf16 ulps of |want| it spans, and the atol it needs
+    beside FLASH_RTOL x |want| (the caller holds that to FLASH_ATOL)."""
+    import torch
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    ulp = torch.exp2((torch.frexp(b).exponent - 8).float())
+    return {"err": float(diff.max()), "ulps": float((diff / ulp).max()),
+            "atol_needed": max(0.0, float((diff - FLASH_RTOL * b.abs())
+                                          .max()))}
+
+
+def hold_flash(r, what) -> None:
+    if not r["atol_needed"] <= FLASH_ATOL:
+        raise AssertionError(
+            f"flash_attention kernel != plain ({what}, bf16): |diff| exceeds "
+            f"{FLASH_RTOL:.4g} x |plain| by up to {r['atol_needed']:.4g} > "
+            f"{FLASH_ATOL:.4g} (max |diff| {r['err']:.4g}, {r['ulps']:.3g} "
+            f"ulps)")
+
+
+def check_flash_path(fops, q, k, v, what) -> dict:
+    """The kernel against its plain version at a qwen3 shape, causal: in
+    bf16 per element (``flash_diff``, within FLASH_RTOL x |plain| +
+    FLASH_ATOL), and the f32 instance on the same inputs within 2e-5.
+    Returns the readings, with the mean |plain| over the later half of the
+    rows and the f32 max |diff|."""
+    import torch
+    want = fops.mha_plain(q, k, v, causal=True)
+    out = flash_diff(fops.mha(q, k, v, causal=True), want)
+    out["late_mean"] = float(want[:, q.shape[1] // 2:].float().abs().mean())
+    hold_flash(out, what)
+    del want
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    out["err_f32"] = float((fops.mha(qf, kf, vf, causal=True)
+                            - fops.mha_plain(qf, kf, vf, causal=True))
+                           .abs().max())
+    torch.cuda.synchronize()
+    if not out["err_f32"] <= 2e-5:
+        raise AssertionError(f"flash_attention kernel != plain ({what}, "
+                             f"f32): max |diff| {out['err_f32']} > 2e-5")
+    return out
+
+
+def flash_readings(r) -> str:
+    out = (f"max |diff| {r['err']:.4g} ({r['ulps']:.3g} bf16 ulps at most; "
+           f"needs atol {r['atol_needed']:.4g} beside rtol {FLASH_RTOL:.4g},"
+           f" bar {FLASH_ATOL:.4g}")
+    if "late_mean" not in r:
+        return out + ")"
+    return (out + f"; mean |out| over the later half of the rows "
+            f"{r['late_mean']:.4g}); f32 on the same inputs max |diff| "
+            f"{r['err_f32']:.3g} (bar 2e-5)")
+
+
+def flash_bound(b, s, h, hkv, d, elem=2):
+    """(bytes, flops) of causal attention: q, k, v read once and o written
+    once; 4 H d S^2 / 2 flops per batch row."""
+    return (elem * b * s * d * (2 * h + 2 * hkv), 4 * b * h * d * s * s / 2)
+
+
+def time_flash(fops, q, k, v, reps) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` (causal,
+    GQA) on the same inputs, CUDA events, in ms."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return {"ms": time_ms(lambda: fops.mha(q, k, v, causal=True), reps, 2),
+            "plain_ms": time_ms(lambda: fops.mha_plain(q, k, v, causal=True),
+                                max(2, reps // 4), 1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps, 2)}
+
+
+def gb(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} GB"
+
+
+def logits_close(got, want, what, rtol: float = LOGIT_RTOL) -> float:
+    """Two [B, V] logit arrays within ``rtol`` x max |want| (by default the
+    model-level tolerance), and equal argmax; returns max |diff| / max
+    |want|."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if rel > rtol:
+        raise AssertionError(f"{what}: max |diff| {rel:.4g} x max|logit| > "
+                             f"{rtol:.4g}")
+    if not np.array_equal(got.argmax(-1), want.argmax(-1)):
+        top2 = np.sort(want, -1)[:, -2:]
+        raise AssertionError(
+            f"{what}: argmax {got.argmax(-1)} != {want.argmax(-1)} (max "
+            f"|diff| {rel:.4g} x max|logit|; the reference rows' top-two "
+            f"gaps {(top2[:, 1] - top2[:, 0]).tolist()})")
+    return rel
+
+
+def prefill(cfg, params, b, s, dev, seed=0) -> dict:
+    """Last-token logits of the prefill routes at [B, S] (seeded tokens
+    on the card), timed: the flash route through the kernel; the same route
+    with ``mha_plain`` in the kernel's place, where each layer's kernel
+    output on the same q, k, v is held to ``mha_plain``'s per element
+    (``flash_diff``); and the other route (chunked from 8192 tokens on, else dense).
+    The caller holds the logits to each other (``logits_close``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.train import make_prefill_step
+    gen = torch.Generator(dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev)}
+    out = {}
+    kernel = fops.mha
+    layers = []
+
+    def held(q, k, v, causal=True):
+        want = fops.mha_plain(q, k, v, causal=causal)
+        layers.append(flash_diff(kernel(q, k, v, causal=causal), want))
+        return want
+
+    # the wrapper counts through its module-level name, which is ``held``
+    # in that route: its comparison launches land here, not on the count
+    held.launches = 0
+
+    for route, flash, attn in (("flash", True, kernel),
+                               ("flash_plain", True, held),
+                               ("plain", False, kernel)):
+        step = make_prefill_step(cfg, use_flash=flash)
+        n0 = kernel.launches
+        fops.mha = attn
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        try:
+            logits = step(params, batch)
+            sync(dev)
+        finally:
+            fops.mha = kernel
+        wall = time.perf_counter() - t0
+        out[route] = {
+            "logits": logits[:, 0].float().cpu().numpy(), "wall_s": wall,
+            "tok_per_s": b * s / wall, "flash_launches":
+                kernel.launches - n0,
+            "max_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if torch.device(dev).type == "cuda" else None)}
+    out["held"] = {"layers": held.launches, **{
+        key: max(r[key] for r in layers) for key in layers[0]}}
+    out["held"]["worst_layer"] = max(range(len(layers)),
+                                     key=lambda i: layers[i]["atol_needed"])
+    return out
+
+
+def check_lm_golden(golden: dict, dev) -> dict:
+    """Phase 8g: qwen3-1.7b at full width with the golden's depth on
+    ``convert.lm_numpy_params`` -- both prefill routes and the decode
+    steps held to the JAX package's logits (its flash route) with the
+    model-level tolerance."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(get_arch(golden["arch"]),
+                              n_layers=golden["n_layers"])
+    t0 = time.perf_counter()
+    params = convert.lm_params_from_numpy(
+        convert.lm_numpy_params(cfg, seed=golden["seed"]), cfg, dev)
+    t_weights = time.perf_counter() - t0
+    rng = np.random.default_rng(golden["seed"])
+    tokens = rng.integers(0, cfg.vocab, (golden["batch"], golden["seq"]))
+    if rng.integers(0, cfg.vocab, golden["n_sampled"]).tolist() != \
+            golden["sample_idx"]:
+        raise AssertionError("8g: the seeded inputs differ from the golden's")
+    tok = torch.as_tensor(tokens, device=dev)
+    want = golden["prefill"]["flash"]
+    scale = max(want["max_abs"])
+    idx = np.asarray(golden["sample_idx"])
+    top = np.asarray(want["top8_idx"])
+    worst = 0.0
+
+    def close(got, ref, what):
+        nonlocal worst
+        err = float(np.abs(np.asarray(got, np.float64)
+                           - np.asarray(ref, np.float64)).max()) / scale
+        worst = max(worst, err)
+        if not err <= LOGIT_RTOL:
+            raise AssertionError(f"8g {what}: max |diff| {err:.4g} x "
+                                 f"max|logit| > {LOGIT_RTOL:.4g}")
+
+    for route, flash in (("flash", True), ("plain", False)):
+        lg = make_prefill_step(cfg, use_flash=flash)(
+            params, {"tokens": tok})[:, 0].double().cpu().numpy()
+        close(lg[:, idx], want["sampled"], f"{route} sampled logits")
+        close(np.take_along_axis(lg, top, -1), want["top8_val"],
+              f"{route} top-8 logits")
+        lse = lg.max(-1) + np.log(np.exp(lg - lg.max(-1, keepdims=True))
+                                  .sum(-1))
+        close(lse, want["lse"], f"{route} logsumexp")
+        if lg.argmax(-1).tolist() != top[:, 0].tolist():
+            raise AssertionError(f"8g {route}: argmax {lg.argmax(-1)} != "
+                                 f"golden {top[:, 0]}")
+    dec = golden["decode"]
+    state = lm.init_decode_state(params, cfg, golden["batch"],
+                                 golden["decode_s_max"])
+    step = make_serve_step(cfg)
+    for t in range(golden["decode_steps"]):
+        lg, state = step(params, state, tok[:, t:t + 1])
+        lg = lg[:, 0].double().cpu().numpy()
+        lse = lg.max(-1) + np.log(np.exp(lg - lg.max(-1, keepdims=True))
+                                  .sum(-1))
+        scale = max(dec["max_abs"][t])
+        close(lse, dec["lse"][t], f"decode step {t} logsumexp")
+        if lg.argmax(-1).tolist() != dec["argmax"][t]:
+            raise AssertionError(f"8g decode step {t}: argmax "
+                                 f"{lg.argmax(-1)} != {dec['argmax'][t]}")
+    return {"weights_s": t_weights, "worst_rel": worst}
+
+
+def run_engine(cfg, params, golden_serve: dict, dev) -> dict:
+    """Phase 9: ``SessionProfile.fit`` on the golden's seeded sessions,
+    then ``ServeEngine`` with the ``HydraKVScheduler`` on the launcher's
+    requests; the stats must equal the golden's."""
+    import numpy as np
+    from repro_torch.serve import (HydraKVScheduler, Request,
+                                   SchedulerKnobs, ServeEngine,
+                                   SessionProfile)
+    g = golden_serve
+    profile = SessionProfile.fit(np.asarray(g["session_turns"]),
+                                 np.asarray(g["session_gaps"]),
+                                 seed=g["profile_seed"], device=dev)
+    for f in ("rc_centers", "ri_centers"):
+        got, ref = getattr(profile, f), np.asarray(g["profile"][f])
+        if not np.allclose(got, ref, rtol=RTOL, atol=0):
+            raise AssertionError(f"profile {f} {got} != golden {ref}")
+    sched = HydraKVScheduler(
+        SchedulerKnobs(token_budget=g["token_budget"],
+                       deadline_tokens=g["deadline_tokens"]),
+        profile=profile, device=dev)
+    eng = ServeEngine(cfg, params, slots=g["slots"], s_max=g["s_max"],
+                      scheduler=sched)
+    step, steps = eng.step_fn, []
+
+    def timed_step(*a):
+        out = step(*a)
+        steps.append(1)
+        return out
+
+    eng.step_fn = timed_step
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = eng.run([Request(**r) for r in g["requests"]],
+                    max_steps=g["max_steps"])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    stats = json.loads(json.dumps(stats))
+    if stats != g["stats"]:
+        raise AssertionError(f"engine stats {stats} != golden {g['stats']}")
+    tokens = sum(r["max_new"] for r in g["requests"])
+    return {"stats": stats, "wall_s": wall, "steps": len(steps),
+            "ms_per_step": wall / max(len(steps), 1) * 1e3,
+            "tok_per_s": tokens / wall, "clock": eng.clock,
+            "profile": profile_decode(eng, dev)}
+
+
+def profile_decode(eng, dev, steps: int = 4) -> dict:
+    """``torch.profiler`` over a few more decode steps of the finished
+    engine (its stats are already taken): device time against wall time
+    and the kernels a step launches.  Empty where the profiler sees no
+    device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if torch.device(dev).type != "cuda":
+        return {}
+    tok = eng._tokens(0)
+    eng.step_fn(eng.params, eng.state, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step_fn(eng.params, eng.state, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return {}
+    ms = [e.time_range.elapsed_us() / 1e3 for e in kern]
+    busy = sum(ms)
+    by_name = {}
+    for e, t in zip(kern, ms):
+        by_name[e.name] = by_name.get(e.name, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"wall_ms_per_step": wall / steps * 1e3,
+            "device_ms_per_step": busy / steps,
+            "kernels_per_step": len(kern) / steps,
+            "top": [(n[:60], round(t / steps, 4)) for n, t in top]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (os.path.exists(GOLDEN) and os.path.exists(SYSTEM)):
+    if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -302,9 +676,12 @@ def main() -> int:
     from repro_torch import exp
     from repro_torch.core import lern, llc, policies, sim
     from repro_torch.core.dram import default_model
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.kmeans_assign import ops as kops
     from repro_torch.kernels.ri_histogram import ops as hops
+    from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -353,6 +730,23 @@ def main() -> int:
                     f"batched [3, 777, 4] {dtype}")
     log("[kmeans_assign] kernel == plain (argmin) on the test_kernels cases "
         "in f32 and bf16 and a batched case")
+    t0 = time.time()
+    errs = []
+    for case in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                errs.append(check_flash(
+                    fops, *flash_inputs(*case, dtype, dev), causal,
+                    f"{case} {dtype} causal={causal}"))
+    qwen = get_arch("qwen3-1.7b")
+    layer = (1, 4096, qwen.n_heads, qwen.n_kv, qwen.d_head)
+    r_layer = check_flash_path(fops, *flash_inputs(*layer, torch.bfloat16,
+                                                   dev), f"qwen3 layer {layer}")
+    log(f"[flash_attention] 3c: kernel == plain within atol 2e-5 (f32) / "
+        f"2e-2 (bf16) on the 16 test_kernels cases (max |diff| "
+        f"{max(errs):.3g}); at one qwen3-1.7b layer B, S, H, Hkv, d = "
+        f"{layer} causal: {flash_readings(r_layer)}; "
+        f"{time.time() - t0:.1f} s with the first launches")
 
     # 4. the main path of the first slice: one data point at full size
     golden = json.load(open(GOLDEN))
@@ -514,6 +908,91 @@ def main() -> int:
         raise AssertionError(f"prediction accuracy {acc} != golden "
                              f"{acc_want['accuracy']} or not > 0.7")
 
+    # 8. the third slice's path: prefill of qwen3-1.7b at full width
+    cfg = get_arch("qwen3-1.7b")
+    t0 = time.time()
+    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                            device=dev)
+    torch.cuda.synchronize()
+    log(f"[prefill] qwen3-1.7b, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {sum(p.numel() for p in params.parameters()):,} "
+        f"parameters initialised on the card in {time.time() - t0:.1f} s")
+    cap_f = Capture(fops, "mha", largest=True)
+    flash = cap_f.fn
+    flash.launches = dense.launches = hist.launches = assign.launches = 0
+    for b, s in ((1, 32768), (4, 4096)):
+        r = prefill(cfg, params, b, s, dev)
+        other = "chunked" if s >= 8192 else "dense"
+        log(f"[prefill] B={b} S={s}: " + "; ".join(
+            f"{name} route {r[key]['wall_s']:.2f} s ({r[key]['tok_per_s']:,.0f}"
+            f" tok/s, {r[key]['flash_launches']} flash launches, max memory "
+            f"{gb(r[key]['max_mem_gb'])})" for key, name in
+            (("flash", "flash"), ("flash_plain", "flash with mha_plain"),
+             ("plain", other))))
+        launches_fp = tuple(r[key]["flash_launches"]
+                            for key in ("flash", "flash_plain", "plain"))
+        if launches_fp != (cfg.n_layers, 0, 0) or \
+                r["held"]["layers"] != cfg.n_layers:
+            raise AssertionError(f"prefill B={b} S={s}: flash launches "
+                                 f"{launches_fp}, want ({cfg.n_layers}, 0, 0)"
+                                 f"; {r['held']['layers']} layers held")
+        log(f"[prefill] B={b} S={s}: the kernel on each of the "
+            f"{cfg.n_layers} layers' q, k, v of the mha_plain forward: "
+            f"{flash_readings(r['held'])} (worst layer "
+            f"{r['held']['worst_layer']})")
+        hold_flash(r["held"], f"prefill B={b} S={s}, layer "
+                              f"{r['held']['worst_layer']}")
+        rel_k = logits_close(r["flash"]["logits"], r["flash_plain"]["logits"],
+                             f"prefill B={b} S={s} kernel vs mha_plain")
+        rel = logits_close(r["flash"]["logits"], r["plain"]["logits"],
+                           f"prefill B={b} S={s} flash vs {other} route")
+        log(f"[prefill] B={b} S={s}: last-token logits of the flash route "
+            f"agree with the mha_plain forward (max |diff| {rel_k:.4g} x "
+            f"max|logit|) and with the {other} route ({rel:.4g}); bar "
+            f"{LOGIT_RTOL:.4g}, argmax equal")
+    pre_launches = flash.launches
+    cap_f.restore()
+    if pre_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"phase 8 launched flash_attention "
+                             f"{pre_launches} times, want {2 * cfg.n_layers}")
+
+    # 8g. the 2-layer full-width model held to the JAX package's logits
+    lm_golden = json.load(open(LM_GOLDEN))
+    t0 = time.time()
+    g8 = check_lm_golden(lm_golden, dev)
+    log(f"[golden] qwen3-1.7b at full width, {lm_golden['n_layers']} "
+        f"layers, B={lm_golden['batch']} S={lm_golden['seq']}: both "
+        f"prefill routes and {lm_golden['decode_steps']} decode steps "
+        f"match the JAX logits (worst {g8['worst_rel']:.4g} x "
+        f"max|logit|, bar {LOGIT_RTOL:.4g}; argmax equal); weights "
+        f"{g8['weights_s']:.1f} s, phase {time.time() - t0:.1f} s")
+
+    # 9. the server answers requests on the 28-layer model
+    dense.launches = flash.launches = 0
+    eng = run_engine(cfg, params, lm_golden["serve"], dev)
+    serve_launches = {"kmeans_assign": dense.launches,
+                      "flash_attention": flash.launches}
+    log(f"[serve] ServeEngine(slots {lm_golden['serve']['slots']}, s_max"
+        f" {lm_golden['serve']['s_max']}) on the {cfg.n_layers}-layer "
+        f"model: "
+        f"{eng['stats']['completed']} requests answered in "
+        f"{eng['clock']} engine steps, {eng['steps']} decode steps in "
+        f"{eng['wall_s']:.2f} s ({eng['ms_per_step']:.2f} ms a step, "
+        f"{eng['tok_per_s']:.1f} generated tok/s); stats equal the "
+        f"golden: {eng['stats']}; launches {serve_launches}")
+    pr = eng["profile"]
+    log("[serve] profiler over 4 more decode steps: " + (
+        f"wall {pr['wall_ms_per_step']:.2f} ms a step, device busy "
+        f"{pr['device_ms_per_step']:.2f} ms ("
+        f"{pr['device_ms_per_step'] / pr['wall_ms_per_step']:.1%}), "
+        f"{pr['kernels_per_step']:.0f} kernels a step; most device "
+        f"time (ms a step): {pr['top']}" if pr else "not measured"))
+    if dense.launches != 51:
+        raise AssertionError(f"the serving path launched kmeans_assign "
+                             f"{dense.launches} times, want 51 (one profile "
+                             f"fit)")
+    del params
+
     # 3b. the kernels at the shapes the paths handed them
     kernels = []
     (ri,) = cap_h.args
@@ -558,12 +1037,35 @@ def main() -> int:
         time_ms(lambda: kops.assign_plain(x, centers)),
         x.element_size() * (b * nd * d + b * k * d) + 4 * b * nd,
         b * nd * k * (2 * d + 2), None, {"B": b, "N": nd, "D": d, "K": k}))
+    q, k, v = cap_f.args
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    r_path = check_flash_path(fops, q, k, v, "phase 8 path shape")
+    err = r_path["err"]
+    log(f"[flash_attention] kernel == plain at the phase 8 path shape "
+        f"{tuple(q.shape)}: {flash_readings(r_path)}")
+    times = time_flash(fops, q, k, v, reps=3)
+    n_bytes, n_ops = flash_bound(b, s, h, hkv, d)
+    kernels.append(kernel_row(
+        "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:70", pre_launches, err,
+        times["ms"], times["plain_ms"], n_bytes, n_ops, times["library_ms"],
+        {"B": b, "S": s, "H": h, "Hkv": hkv, "d": d, "dtype": "bf16"},
+        peak=BF16_FLOPS))
+    del q, k, v, cap_f
+    ql, kl, vl = flash_inputs(*layer, torch.bfloat16, dev)
+    t4k = time_flash(fops, ql, kl, vl, reps=20)
+    b4, s4 = layer[0], layer[1]
+    by4, op4 = flash_bound(*layer)
+    bound4 = max(by4 / HBM_BYTES_PER_S, op4 / BF16_FLOPS) * 1e3
+    log(f"[flash_attention] at one qwen3 layer B={b4} S={s4}: kernel "
+        f"{t4k['ms']:.4f} ms, plain {t4k['plain_ms']:.4f} ms, sdpa "
+        f"{t4k['library_ms']} ms, bound {bound4:.4f} ms (operations)")
     for kr in kernels:
         log(f"[{kr['name']}] at path shape {kr['shape']}: kernel "
             f"{kr['ms']:.4f} ms, plain {kr['plain_ms']:.4f} ms, bound "
             f"{kr['bound_ms'] * 1e3:.3f} us ({kr['bound_by']}), library "
             f"{kr['library_ms']} ms, launches {kr['launches']}")
-
     # 5. the LERN fit twice on the card, and once on the CPU
     os.environ["REPRO_CACHE"] = cache
     tr = sim.load_trace(CONFIG, p.subsample_target)

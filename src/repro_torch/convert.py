@@ -2,11 +2,15 @@
 
 The parity tests feed the port the reference's trained LERN model and
 mid-run LLC state through these, so the LLC engine and the host loop are
-held to the reference apart from the k-means fit.
+held to the reference apart from the k-means fit.  For the model zoo,
+``lm_numpy_params`` makes one seeded numpy parameter tree in the JAX
+package's layout, which both packages take (the JAX functions as ``jnp``
+arrays of the tree's types, the port through ``lm_params_from_numpy``).
 """
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -15,6 +19,7 @@ from . import device as _device
 from .core.lern import LernModel
 from .core.llc import LLCState
 from .core.lrpt import lrpt_train_hash
+from .configs.base import ModelConfig
 
 
 def lern_model_from_numpy(uniq: np.ndarray, rc_cluster: np.ndarray,
@@ -48,3 +53,96 @@ def llc_state_from_numpy(tags, lru, owner, sig, reused, tick, shct_core,
     return LLCState(tags=t(tags), lru=t(lru), owner=t(owner), sig=t(sig),
                     reused=t(reused, torch.bool), tick=t(tick),
                     shct_core=t(shct_core), shct_accel=t(shct_accel))
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """Round f32 values to the nearest bf16 (ties to even) in place, kept
+    as f32 (numpy has no bf16), in chunks to bound the temporaries."""
+    u = a.reshape(-1).view(np.uint32)
+    step = 1 << 24
+    for i in range(0, u.size, step):
+        c = u[i:i + step]
+        c += np.uint32(0x7FFF) + ((c >> np.uint32(16)) & np.uint32(1))
+        c &= np.uint32(0xFFFF0000)
+    return a
+
+
+def _dense_layout(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The dense family's parameter leaves as path -> (shape, fan-in scale
+    or None for a norm scale of ones), in the JAX package's layout (layers
+    stacked on axis 0)."""
+    d, n, hd, f = cfg.d_model, cfg.n_layers, cfg.d_head, cfg.d_ff
+    out = {"embed/table": ((cfg.vocab, d), 0.02), "ln_f/scale": ((d,), None),
+           "layers/ln1/scale": ((n, d), None),
+           "layers/ln2/scale": ((n, d), None)}
+    for name, shape in (("wq", (d, cfg.n_heads * hd)),
+                        ("wk", (d, cfg.n_kv * hd)),
+                        ("wv", (d, cfg.n_kv * hd)),
+                        ("wo", (cfg.n_heads * hd, d))):
+        out[f"layers/attn/{name}"] = ((n,) + shape, 1 / math.sqrt(shape[0]))
+    if cfg.qk_norm:
+        out["layers/attn/q_norm"] = ((n, hd), None)
+        out["layers/attn/k_norm"] = ((n, hd), None)
+    mlp = ((("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d)))
+           if cfg.act != "gelu" else
+           (("w_up", (d, f)), ("w_down", (f, d))))
+    for name, shape in mlp:
+        out[f"layers/mlp/{name}"] = ((n,) + shape, 1 / math.sqrt(shape[0]))
+    if cfg.act == "gelu":
+        out["layers/mlp/b_up"] = ((n, f), 0.0)
+        out["layers/mlp/b_down"] = ((n, d), 0.0)
+    return out
+
+
+def lm_numpy_params(cfg: ModelConfig, seed: int = 0) -> Dict:
+    """A seeded parameter tree of the dense family in the JAX package's
+    layout: nested dicts with the shapes of ``jax.eval_shape(
+    lm.init_params)``, the JAX package's scales (0.02 for the table,
+    1/sqrt(fan_in) for the weights, ones for the norm scales), f32 normal
+    draws from ``numpy.random.default_rng(seed)`` in the order of
+    ``_dense_layout``, rounded to bf16 and held as f32 arrays.  Every value
+    is exact in its leaf's type (bf16 weights, f32 norm scales)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet: ROADMAP.md "
+            f"Queue 1 item 13")
+    rng = np.random.default_rng(seed)
+    tree: Dict = {}
+    for path, (shape, scale) in _dense_layout(cfg).items():
+        if scale is None:
+            a = np.ones(shape, np.float32)
+        elif scale == 0.0:
+            a = np.zeros(shape, np.float32)
+        else:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            a *= np.float32(scale)
+            bf16_round(a)
+        node = tree
+        *heads, leaf = path.split("/")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = a
+    return tree
+
+
+def lm_params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda"):
+    """The port's ``models.lm.LM`` on ``device`` holding the values of
+    ``tree`` (the JAX package's layout, as ``lm_numpy_params`` makes it):
+    the stacked layer axis is split over the blocks, each leaf is cast to
+    its parameter's type."""
+    from .models import lm
+    dev = _device.resolve(device)
+    lm._dense_only(cfg)
+    model = lm.LM(None, cfg, dev)
+    for path in _dense_layout(cfg):
+        a = tree
+        for key in path.split("/"):
+            a = a[key]
+        a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        head, rest = path.split("/", 1)
+        if head != "layers":
+            model.get_parameter(path.replace("/", ".")).copy_(a)
+            continue
+        for i, block in enumerate(model.layers):
+            block.get_parameter(rest.replace("/", ".")).copy_(a[i])
+    return model

@@ -1,0 +1,106 @@
+"""The flash attention kernel's plain version against the JAX package's
+Pallas kernel (interpret mode) and its oracle, at the
+``tests/test_kernels.py::test_flash_attention`` cases and bars, and the
+wrapper's contract: the shapes the Pallas wrapper refuses are refused here
+too, the plain version only for CPU tensors, launches counted only on the
+card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as fops, ref as fref
+from repro_torch.kernels.flash_attention import ops as tops
+from test_torch_sim import torch_one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
+
+CASES = [(1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 384, 8, 1, 128),
+         (2, 128, 4, 4, 32)]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(b, s, h, hkv, d, dtype):
+    """tests/test_kernels.py's inputs, in both packages."""
+    jd, td, _ = DTYPES[dtype]
+    rng = np.random.default_rng(42)
+    arrs = [jnp.asarray(rng.normal(size=shape), jd) for shape in
+            ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
+    return arrs, [torch.tensor(np.asarray(a.astype(jnp.float32))).to(td)
+                  for a in arrs]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_and_oracle(b, s, h, hkv, d, dtype, causal):
+    (q, k, v), (tq, tk, tv) = _inputs(b, s, h, hkv, d, dtype)
+    atol = DTYPES[dtype][2]
+    got = tops.mha_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    got = got.float().numpy()
+    pallas = np.asarray(fops.mha(q, k, v, causal=causal), np.float32)
+    rep = h // hkv
+    kk = jnp.repeat(k, rep, 2).transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    vv = jnp.repeat(v, rep, 2).transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    qq = q.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    want = np.asarray(fref.mha_ref(qq, kk, vv, causal=causal).reshape(
+        b, h, s, d).transpose(0, 2, 1, 3), np.float32)
+    np.testing.assert_allclose(got, pallas, atol=atol, rtol=0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    # the wrapper takes the plain version for CPU tensors, uncounted
+    n = tops.mha.launches
+    np.testing.assert_array_equal(
+        tops.mha(tq, tk, tv, causal=causal).float().numpy(), got)
+    assert tops.mha.launches == n
+
+
+def test_plain_rounds_p_before_the_pv_product():
+    """In bf16 the weights are rounded to the input type before they meet
+    V (``p.astype(v.dtype)`` in the Pallas kernel): the plain version
+    equals the Pallas kernel more closely than an f32-weights variant."""
+    (q, k, v), (tq, tk, tv) = _inputs(1, 256, 4, 2, 64, "bfloat16")
+    pallas = np.asarray(fops.mha(q, k, v, causal=True), np.float32)
+    got = tops.mha_plain(tq, tk, tv, causal=True).float().numpy()
+    f32 = tops.mha_plain(tq.float(), tk.float(), tv.float(),
+                         causal=True).to(torch.bfloat16).float().numpy()
+    assert np.abs(got - pallas).max() < np.abs(f32 - pallas).max()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d", [
+    (1, 200, 200, 2, 2, 64),       # Sq > 128, not a multiple of 128
+    (1, 128, 130, 2, 1, 32),       # Sk > 128, not a multiple of 128
+    (2, 320, 320, 4, 2, 64),
+])
+def test_refuses_what_the_pallas_kernel_refuses(b, sq, sk, h, hkv, d):
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(b, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    with pytest.raises(AssertionError):
+        fops.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tops.mha(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(k))
+
+
+@pytest.mark.parametrize("what", ["head_size", "dtype", "mixed", "gqa",
+                                  "rank", "device"])
+def test_refuses_what_the_kernel_does_not_take(what):
+    q = torch.zeros(1, 128, 4, 64)
+    k = torch.zeros(1, 128, 2, 64)
+    v = k
+    if what == "head_size":
+        q, k, v = q[..., :48], k[..., :48], k[..., :48]
+    elif what == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif what == "mixed":
+        v = k.to(torch.bfloat16)
+    elif what == "gqa":
+        k = v = torch.zeros(1, 128, 3, 64)
+    elif what == "rank":
+        q = q[0]
+    else:
+        q, k, v = (t.to("meta") for t in (q, k, v))
+    with pytest.raises(ValueError):
+        tops.mha(q, k, v)
+

@@ -1,16 +1,21 @@
 """The golden files chip_smoke.py holds the card's runs to are what the
 JAX package computes: regenerate each in the reference child and compare
-with the committed file, field for field."""
+with the committed file, field for field.  The serving golden is also held
+to the port on the CPU, through the same checks chip_smoke.py runs on the
+card (phases 8g and 9)."""
+import importlib.util
 import json
 import os
 
 import pytest
 
-from test_torch_sim import ROOT, SYSTEM_POLICIES, run_child
+from test_torch_sim import (ROOT, SYSTEM_POLICIES, run_child,
+                            torch_one_thread)  # noqa: F401
 
 GOLDEN_DIR = os.path.join(ROOT, "src", "repro_torch", "golden")
 GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
 SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
+LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
 
 
 def _fresh(tmp_path, mode):
@@ -63,3 +68,52 @@ def test_system_golden_holds_the_paper_orderings(system):
     for name, want in segmented["points"].items():
         got = system["points"][name]
         assert {k: got[k] for k in want} == want, name
+
+
+@pytest.fixture(scope="module")
+def lm_golden(tmp_path_factory):
+    return _fresh(tmp_path_factory.mktemp("lm_golden"), "lm_golden")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_lm_golden_file_is_the_reference(lm_golden):
+    """The serving golden is what the JAX package computes, and its own
+    flash and plain routes stay inside the gap the tolerance is built
+    on (tests/test_torch_models.py, chip_smoke.py)."""
+    from test_torch_models import LOGIT_RTOL, REF_GAP
+    with open(LM_GOLDEN) as f:
+        committed = json.load(f)
+    assert committed == lm_golden
+    assert committed["ref_gap"] <= REF_GAP
+    cs = _chip_smoke()
+    assert (cs.REF_GAP, cs.LOGIT_RTOL) == (REF_GAP, LOGIT_RTOL)
+    assert committed["serve"]["stats"]["completed"] == len(
+        committed["serve"]["requests"])
+
+
+@pytest.mark.usefixtures("torch_one_thread")
+def test_port_matches_lm_golden_on_the_cpu():
+    """chip_smoke.py's phase 8g and phase 9 checks on the CPU: the 2-layer
+    full-width model's prefill (both routes) and decode logits against the
+    JAX golden, and the engine's stats on the reduced config (they depend
+    on scheduling only)."""
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    cs = _chip_smoke()
+    with open(LM_GOLDEN) as f:
+        golden = json.load(f)
+    got = cs.check_lm_golden(golden, "cpu")
+    assert got["worst_rel"] <= cs.LOGIT_RTOL
+    cfg = get_arch(golden["arch"]).reduced()
+    params = lm_params_from_numpy(lm_numpy_params(cfg, seed=0), cfg, "cpu")
+    eng = cs.run_engine(cfg, params, golden["serve"], "cpu")
+    assert eng["stats"] == golden["serve"]["stats"]
+

@@ -126,6 +126,7 @@ def test_cuda_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "NVCC_DEFAULT",
                         os.path.join(str(tmp_path), "no-nvcc"))
-    assert _build.sources() == ["kmeans_assign", "kmeans_assign_segmented"]
+    assert _build.sources() == ["flash_attention", "kmeans_assign",
+                                "kmeans_assign_segmented"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()

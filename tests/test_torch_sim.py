@@ -25,6 +25,18 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 ``exp.run`` records at the tiny point on both fit engines
                 (``tests/test_torch_sweep.py``, ``tests/test_torch_exp.py``),
                 pickled.
+* ``serve``  -- ``serve.engine.ServeEngine`` runs on the reduced qwen3-1.7b
+                (stats and final KV caches), ``SessionProfile.fit`` and
+                ``classify``, and a scheduler drive under an injected
+                ``refit`` fault (``tests/test_torch_serve.py``), pickled.
+* ``lm_golden`` -- qwen3-1.7b at full width with its depth cut to 2 layers
+                on ``convert.lm_numpy_params(cfg, seed=0)``: last-token
+                logits of both prefill routes and 8 decode steps, plus the
+                serving run of ``chip_smoke.py`` phase 9 (its stats depend
+                on scheduling only, so the reduced config computes them), as
+                JSON.  Regenerate the committed file with
+                ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
+                lm_golden src/repro_torch/golden/qwen3_1_7b_w2_serve.json``.
 """
 import dataclasses
 import json
@@ -79,6 +91,13 @@ SWEEP_GROUPS = (
     ("config1", "moti1", ("arp-cs-as", "arp-cs-as-large"), 40),
 )
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the serving slice: qwen3-1.7b, the serve launcher's requests and knobs
+LM_ARCH = "qwen3-1.7b"
+LM_GOLDEN = dict(n_layers=2, seed=0, batch=2, seq=512, decode_steps=8,
+                 decode_s_max=16, n_sampled=64)
+SERVE_RUN = dict(slots=4, s_max=256, max_steps=4000, token_budget=4096,
+                 deadline_tokens=128, profile_seed=0)
+SESSIONS = 64          # seeded session features the profile is fit on
 LERN_FIELDS = ("uniq", "rc_cluster", "ri_cluster", "n_uniq", "rc_centers",
                "ri_centers", "features_ri")
 # the fields tests/_reference.py::assert_bitwise compares
@@ -143,6 +162,207 @@ def exp_record(row) -> dict:
     return out
 
 
+def serve_requests():
+    """``launch/serve.py``'s requests: 12 sessions, prompt [1, 2, 3],
+    max_new 16, deadline 20 x max_new, arrivals ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return [dict(session_id=i, prompt=[1, 2, 3], max_new=16,
+                 deadline_steps=16 * 20, arrival=int(rng.integers(0, 32)))
+            for i in range(12)]
+
+
+def session_features(seed: int = 0, n: int = SESSIONS):
+    """Seeded (turns per session, inter-turn gap) features."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, 12, n), rng.integers(2, 800, n)
+
+
+def engine_cases(serve):
+    """name -> scheduler factory of the engine runs held to the
+    reference (``serve`` is either package's serve layer; the port's
+    needs ``device=`` and gets it through ``kw``)."""
+    K = serve.SchedulerKnobs
+    knobs = dict(token_budget=SERVE_RUN["token_budget"],
+                 deadline_tokens=SERVE_RUN["deadline_tokens"])
+
+    def hydra(**kw):
+        prof = serve.SessionProfile.fit(*session_features(), seed=0, **kw)
+        return serve.HydraKVScheduler(K(**knobs), profile=prof, **kw)
+
+    def online(**kw):
+        prof = serve.SessionProfile.fit(*session_features(), seed=0, **kw)
+        return serve.HydraKVScheduler(
+            K(**knobs, retrain_period=2, min_refit_sessions=4),
+            profile=prof, **kw)
+
+    return {"none": lambda **kw: None, "hydra": hydra, "online": online}
+
+
+def drive_scheduler(sched, n=64, seed=0):
+    """tests/test_faults.py's scheduler drive: n sessions, an epoch update
+    every 4."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        sched.keep_resident(float(rng.integers(1, 12)),
+                            float(rng.integers(2, 800)))
+        if (i + 1) % 4 == 0:
+            sched.epoch_update(decoded_rate=float(rng.random()),
+                               required_rate=1.0,
+                               hbm_pressure=float(rng.random()))
+
+
+def profile_cases():
+    """(turns, gaps, seed) inputs of ``SessionProfile.fit``: the profile
+    of tests/test_faults.py and seeded ones of 5 to 300 sessions."""
+    cases = [(np.array([1, 1, 2, 4, 6, 8, 8, 12] * 4),
+              np.array([2, 4, 8, 16, 64, 256, 400, 800] * 4), 0)]
+    for seed in range(4):
+        rng = np.random.default_rng(100 + seed)
+        n = int(rng.integers(5, 300))
+        cases.append((rng.integers(1, 12, n), rng.integers(2, 800, n), seed))
+    return cases
+
+
+CLASSIFY_GRID = [(t, g) for t in (1.0, 2.0, 3.5, 8.0, 30.0)
+                 for g in (1.0, 10.0, 64.0, 300.0, 5000.0)]
+
+
+def logit_digest(logits, sample_idx) -> dict:
+    """Last-token logits [B, V] (f32) as the golden file keeps them."""
+    lg = np.asarray(logits, np.float64)
+    top = np.argsort(-lg, axis=-1, kind="stable")[:, :8]
+    m = lg.max(-1, keepdims=True)
+    lse = (m[:, 0] + np.log(np.exp(lg - m).sum(-1)))
+    return {"top8_idx": top.tolist(),
+            "top8_val": np.take_along_axis(lg, top, -1).tolist(),
+            "lse": lse.tolist(), "max_abs": np.abs(lg).max(-1).tolist(),
+            "sampled": lg[:, sample_idx].tolist()}
+
+
+def lm_golden_inputs(vocab: int):
+    """The prompt tokens [B, S] and the sampled logit indices."""
+    rng = np.random.default_rng(LM_GOLDEN["seed"])
+    tokens = rng.integers(0, vocab, (LM_GOLDEN["batch"], LM_GOLDEN["seq"]))
+    sample = rng.integers(0, vocab, LM_GOLDEN["n_sampled"])
+    return tokens.astype(np.int32), sample
+
+
+def _jax_params(cfg, tree):
+    """The numpy tree as jnp arrays of the JAX init's types."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import lm
+    shapes = jax.eval_shape(lambda: lm.init_params(jax.random.PRNGKey(0),
+                                                   cfg))
+    return jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), tree, shapes)
+
+
+def _jax_engine(cfg, params, sched):
+    from repro.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params, slots=SERVE_RUN["slots"],
+                      s_max=SERVE_RUN["s_max"], scheduler=sched)
+    stats = eng.run([Request(**r) for r in serve_requests()],
+                    max_steps=SERVE_RUN["max_steps"])
+    return eng, stats
+
+
+def _serve_child(out: str) -> None:
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro import serve
+    from repro.exp import faults
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.configs import get_arch as port_arch
+    cfg = get_arch(LM_ARCH).reduced()
+    params = _jax_params(cfg, lm_numpy_params(port_arch(LM_ARCH).reduced(),
+                                              seed=0))
+    engines = {}
+    for name, make in engine_cases(serve).items():
+        sched = make()
+        eng, stats = _jax_engine(cfg, params, sched)
+        engines[name] = {
+            "stats": stats, "pos": int(eng.state.pos),
+            "k": np.asarray(eng.state.kv.k.astype(jnp.float32)),
+            "v": np.asarray(eng.state.kv.v.astype(jnp.float32)),
+            "profile": None if sched is None else (
+                sched.profile.rc_centers, sched.profile.ri_centers)}
+    profiles = []
+    for turns, gaps, seed in profile_cases():
+        prof = serve.SessionProfile.fit(turns, gaps, seed=seed)
+        profiles.append({"rc": prof.rc_centers, "ri": prof.ri_centers,
+                         "classify": [prof.classify(t, g)
+                                      for t, g in CLASSIFY_GRID]})
+    turns, gaps, _ = profile_cases()[0]
+    sched = serve.HydraKVScheduler(
+        serve.SchedulerKnobs(token_budget=2048, deadline_tokens=128,
+                             retrain_period=4),
+        profile=serve.SessionProfile.fit(turns, gaps))
+    plan = faults.FaultPlan.make([faults.FaultSpec(site="refit",
+                                                   kind="raise")])
+    with faults.activate(plan):
+        drive_scheduler(sched)
+    refit = {"stats": sched.stats(), "rc": sched.profile.rc_centers,
+             "ri": sched.profile.ri_centers}
+    with open(out, "wb") as f:
+        pickle.dump({"engines": engines, "profiles": profiles,
+                     "refit_fault": refit}, f)
+
+
+def _lm_golden_child(out: str) -> None:
+    import dataclasses as dc
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro import serve
+    from repro.models import lm
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.configs import get_arch as port_arch
+    n = LM_GOLDEN["n_layers"]
+    cfg = dc.replace(get_arch(LM_ARCH), n_layers=n)
+    params = _jax_params(cfg, lm_numpy_params(
+        dc.replace(port_arch(LM_ARCH), n_layers=n), seed=LM_GOLDEN["seed"]))
+    tokens, sample = lm_golden_inputs(cfg.vocab)
+    prefill, raw = {}, {}
+    for route, flash in (("flash", True), ("plain", False)):
+        fn = jax.jit(lambda p, t, f=flash: lm.forward(
+            p, cfg, {"tokens": t}, use_flash=f, last_only=True))
+        raw[route] = np.asarray(fn(params, jnp.asarray(tokens)))[:, 0]
+        prefill[route] = logit_digest(raw[route], sample)
+    gap = float(np.abs(raw["flash"] - raw["plain"]).max()
+                / np.abs(raw["flash"]).max())
+    state = lm.init_decode_state(params, cfg, LM_GOLDEN["batch"],
+                                 LM_GOLDEN["decode_s_max"])
+    step = jax.jit(lambda p, s, t: lm.decode_step(p, cfg, s, t))
+    decode = {"argmax": [], "lse": [], "max_abs": []}
+    for t in range(LM_GOLDEN["decode_steps"]):
+        lg, state = step(params, state, jnp.asarray(tokens[:, t:t + 1]))
+        d = logit_digest(np.asarray(lg)[:, 0], sample)
+        decode["argmax"].append([row[0] for row in d["top8_idx"]])
+        decode["lse"].append(d["lse"])
+        decode["max_abs"].append(d["max_abs"])
+    # phase 9: the stats depend on scheduling only (not on the logits), so
+    # the reduced config's engine gives them
+    small = get_arch(LM_ARCH).reduced()
+    sparams = _jax_params(small, lm_numpy_params(
+        port_arch(LM_ARCH).reduced(), seed=0))
+    sched = engine_cases(serve)["hydra"]()
+    _, stats = _jax_engine(small, sparams, sched)
+    turns, gaps = session_features()
+    doc = {"arch": LM_ARCH, **LM_GOLDEN, "sample_idx": sample.tolist(),
+           "ref_gap": gap, "prefill": prefill, "decode": decode,
+           "serve": dict(SERVE_RUN, requests=serve_requests(),
+                         session_turns=turns.tolist(),
+                         session_gaps=gaps.tolist(),
+                         profile={"rc_centers": sched.profile.rc_centers
+                                  .tolist(),
+                                  "ri_centers": sched.profile.ri_centers
+                                  .tolist()},
+                         stats=stats)}
+    with open(out, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def _child_main(mode: str, out: str) -> None:
     import jax
     import jax.experimental
@@ -195,6 +415,10 @@ def _child_main(mode: str, out: str) -> None:
         with open(out, "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
             f.write("\n")
+    elif mode == "serve":
+        _serve_child(out)
+    elif mode == "lm_golden":
+        _lm_golden_child(out)
     elif mode == "sweep_exp":
         from repro import exp
         from repro.core import sweep
