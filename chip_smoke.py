@@ -32,10 +32,19 @@ port's two paths at full size, each with the kernels' launch counts set to
   the 28-layer model in ``ServeEngine`` with the ``HydraKVScheduler``
   answering the serve launcher's 12 requests, stats equal to the golden.
 
-Phase 3c holds the flash attention kernel to its plain version at the
-``tests/test_kernels.py`` cases and one qwen3 layer, and times it beside
-``scaled_dot_product_attention``; phase 3b holds it again at phase 8's
-largest shape, in bf16 and in f32.
+Flash attention has two kernels (``ops.route``): bf16 goes to the Hopper
+kernel (``wgmma`` for both products, a TMA-fed K/V ring, a producer
+warpgroup), f32 to the CUDA-core kernel.  Phase 2 prints the Hopper
+kernel's ``-Xptxas -v`` report (registers, spills) and shared memory, and
+counts the ``HGMMA`` instructions of each product in its SASS
+(``cuobjdump``).  Phase 3c holds both kernels to their plain version at
+the ``tests/test_kernels.py`` cases and the cases the Hopper kernel's
+tiling makes new (a ragged single block, Sq != Sk, S=4096 at d=64), and at
+one qwen3 layer, checks that every bf16 call went to the Hopper kernel and
+every f32 call to the CUDA-core one, and times the Hopper kernel beside
+``scaled_dot_product_attention``; phase 8 checks that its 56 launches were
+all the Hopper kernel's; phase 3b holds both again at phase 8's largest
+shape.
 
 Every phase raises on failure.  Without CUDA, or without the rest of the
 repository, it exits non-zero and prints no result.
@@ -49,6 +58,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -81,6 +91,13 @@ FLASH_ATOL = 2 ** -12
 # tests/test_kernels.py::test_flash_attention
 FLASH_CASES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 384, 8, 1, 128),
                (2, 128, 4, 4, 32))
+# what the Hopper kernel's tiling makes new: (B, Sq, Sk, H, Hkv, d), causal
+# -- one ragged block (Sq = Sk = 100 < 128), Sq != Sk (three key blocks
+# for one query tile), and many query tiles at d = 64
+FLASH_EDGE = (((1, 100, 100, 2, 2, 64), True),
+              ((1, 100, 100, 2, 2, 64), False),
+              ((2, 128, 384, 4, 2, 128), False),
+              ((1, 4096, 4096, 16, 8, 64), True))
 
 
 def log(*a):
@@ -140,6 +157,14 @@ class Capture:
     @launches.setter
     def launches(self, value):
         self.fn.launches = value
+
+    @property
+    def kernel_launches(self):
+        return self.fn.kernel_launches
+
+    @kernel_launches.setter
+    def kernel_launches(self, value):
+        self.fn.kernel_launches = value
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
@@ -328,15 +353,52 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def flash_inputs(b, s, h, hkv, d, dtype, dev, seed=42):
+def flash_inputs(b, s, h, hkv, d, dtype, dev, seed=42, sk=None):
     """tests/test_kernels.py's flash inputs: normal q [B, S, H, d], k, v
-    [B, S, Hkv, d] from ``default_rng(seed)``."""
+    [B, Sk, Hkv, d] (Sk = S unless given) from ``default_rng(seed)``."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
     return tuple(torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
                  .to(dtype).to(dev) for shape in
-                 ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+                 ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+
+def flash_build_report(report: str) -> dict:
+    """The ``-Xptxas -v`` lines of the Hopper flash kernel, by head size."""
+    out, d = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            hit = re.search(r"flash_fwd_sm90ILi(\d+)", m.group(1))
+            d = int(hit.group(1)) if hit else None
+        elif d is not None and ("registers" in ln or "spill" in ln):
+            out.setdefault(d, []).append(ln.replace("ptxas info    :", "")
+                                         .strip())
+    return out
+
+
+def hgmma_counts(lib: str) -> dict:
+    """HGMMA instructions in the SASS of each Hopper flash kernel of the
+    built library, by where the A operand comes from: shared memory (S = Q
+    K^T) or registers (O += P V)."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, d = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            hit = re.search(r"flash_fwd_sm90ILi(\d+)", m.group(1))
+            d = int(hit.group(1)) if hit else None
+            continue
+        m = re.search(r"HGMMA\.\S+\s+R\d+,\s*(\S+)", ln)
+        if m and d is not None:
+            kind = "smem" if m.group(1).startswith("gdesc") else "regs"
+            out.setdefault(d, {"smem": 0, "regs": 0})[kind] += 1
+    return out
 
 
 def check_flash(fops, q, k, v, causal, what) -> float:
@@ -477,8 +539,9 @@ def prefill(cfg, params, b, s, dev, seed=0) -> dict:
         return want
 
     # the wrapper counts through its module-level name, which is ``held``
-    # in that route: its comparison launches land here, not on the count
+    # in that route: its comparison launches land here, not on the counts
     held.launches = 0
+    held.kernel_launches = dict.fromkeys(fops.KERNELS, 0)
 
     for route, flash, attn in (("flash", True, kernel),
                                ("flash_plain", True, held),
@@ -702,6 +765,20 @@ def main() -> int:
             ln.strip() for ln in rep.splitlines() if "registers" in ln
             or "Compiling" in ln))
     t_nvcc = time.time() - t0
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    ptxas = flash_build_report(reports["flash_attention"])
+    hgmma = hgmma_counts(_build._target("flash_attention"))
+    for d in fops.HEAD_DIMS:
+        log(f"[build] flash_attention Hopper kernel d={d}: "
+            f"{' | '.join(ptxas.get(d, ['no report']))} | dynamic shared "
+            f"memory {fkernel.smem_bytes(d):,} bytes a block | HGMMA in its "
+            f"SASS: {hgmma.get(d, {}).get('smem', 0)} with A from shared "
+            f"memory (S = Q K^T), {hgmma.get(d, {}).get('regs', 0)} with A "
+            f"from registers (O += P V)")
+        if not (hgmma.get(d, {}).get("smem") and hgmma[d].get("regs")):
+            raise AssertionError(f"the Hopper flash kernel at d={d} does not "
+                                 f"run both products on the tensor cores: "
+                                 f"{hgmma.get(d)}")
     rng = np.random.default_rng(3)
     t0 = time.time()
     check_ri_histogram(hops, dev, 8, rng)       # compiles the Triton kernel
@@ -731,22 +808,40 @@ def main() -> int:
     log("[kmeans_assign] kernel == plain (argmin) on the test_kernels cases "
         "in f32 and bf16 and a batched case")
     t0 = time.time()
-    errs = []
+    errs, edge = [], []
+    by_kernel = dict(fops.mha.kernel_launches)
     for case in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 errs.append(check_flash(
                     fops, *flash_inputs(*case, dtype, dev), causal,
                     f"{case} {dtype} causal={causal}"))
+    for (b, sq, sk, h, hkv, d), causal in FLASH_EDGE:
+        for dtype in (torch.float32, torch.bfloat16):
+            edge.append(check_flash(
+                fops, *flash_inputs(b, sq, h, hkv, d, dtype, dev, sk=sk),
+                causal, f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} d={d} "
+                        f"{dtype} causal={causal}"))
     qwen = get_arch("qwen3-1.7b")
     layer = (1, 4096, qwen.n_heads, qwen.n_kv, qwen.d_head)
     r_layer = check_flash_path(fops, *flash_inputs(*layer, torch.bfloat16,
                                                    dev), f"qwen3 layer {layer}")
-    log(f"[flash_attention] 3c: kernel == plain within atol 2e-5 (f32) / "
-        f"2e-2 (bf16) on the 16 test_kernels cases (max |diff| "
-        f"{max(errs):.3g}); at one qwen3-1.7b layer B, S, H, Hkv, d = "
-        f"{layer} causal: {flash_readings(r_layer)}; "
-        f"{time.time() - t0:.1f} s with the first launches")
+    calls = len(FLASH_CASES) * 2 + len(FLASH_EDGE) + 1    # each type
+    by_kernel = {k: n - by_kernel[k]
+                 for k, n in fops.mha.kernel_launches.items()}
+    if by_kernel != {"wgmma": calls, "simt": calls}:
+        raise AssertionError(f"3c: launches by kernel {by_kernel}, want "
+                             f"every bf16 call ({calls}) on the Hopper "
+                             f"kernel and every f32 call on the CUDA-core "
+                             f"one")
+    log(f"[flash_attention] 3c: kernel == plain within atol 2e-5 (f32, "
+        f"CUDA-core kernel) / 2e-2 (bf16, Hopper kernel) on the 16 "
+        f"test_kernels cases (max |diff| {max(errs):.3g}) and the "
+        f"{2 * len(FLASH_EDGE)} edge cases {[c for c, _ in FLASH_EDGE]} "
+        f"(max |diff| {max(edge):.3g}); launches by kernel {by_kernel}; at "
+        f"one qwen3-1.7b layer B, S, H, Hkv, d = {layer} causal: "
+        f"{flash_readings(r_layer)}; {time.time() - t0:.1f} s with the "
+        f"first launches")
 
     # 4. the main path of the first slice: one data point at full size
     golden = json.load(open(GOLDEN))
@@ -920,6 +1015,7 @@ def main() -> int:
     cap_f = Capture(fops, "mha", largest=True)
     flash = cap_f.fn
     flash.launches = dense.launches = hist.launches = assign.launches = 0
+    flash.kernel_launches = dict.fromkeys(fops.KERNELS, 0)
     for b, s in ((1, 32768), (4, 4096)):
         r = prefill(cfg, params, b, s, dev)
         other = "chunked" if s >= 8192 else "dense"
@@ -950,11 +1046,15 @@ def main() -> int:
             f"agree with the mha_plain forward (max |diff| {rel_k:.4g} x "
             f"max|logit|) and with the {other} route ({rel:.4g}); bar "
             f"{LOGIT_RTOL:.4g}, argmax equal")
-    pre_launches = flash.launches
+    pre_launches = flash.kernel_launches["wgmma"]
     cap_f.restore()
-    if pre_launches != 2 * cfg.n_layers:
+    if (flash.launches, flash.kernel_launches) != (
+            2 * cfg.n_layers, {"wgmma": 2 * cfg.n_layers, "simt": 0}):
         raise AssertionError(f"phase 8 launched flash_attention "
-                             f"{pre_launches} times, want {2 * cfg.n_layers}")
+                             f"{flash.launches} times, by kernel "
+                             f"{flash.kernel_launches}; want "
+                             f"{2 * cfg.n_layers}, all on the Hopper kernel")
+    log(f"[prefill] phase 8 launches by kernel: {flash.kernel_launches}")
 
     # 8g. the 2-layer full-width model held to the JAX package's logits
     lm_golden = json.load(open(LM_GOLDEN))

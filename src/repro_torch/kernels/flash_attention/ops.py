@@ -1,15 +1,18 @@
 """Flash attention (forward): the wrapper, its plain version and the launch
-counter of the CUDA C++ kernel.
+counters of the two CUDA C++ kernels.
 
 ``mha`` replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention`` (body
 ``_flash_kernel``; wrapper ``ops.mha``; oracle ``ref.mha_ref``), called from
 ``models/attention.py::attention(use_flash=True)`` for causal attention
-without a window.  Source: ``src/repro_torch/csrc/flash_attention.cu``.  On
-the card it is bound by operations (4 H d S^2 / 2 flops for causal
-attention at S tokens, on O(S H d) bytes); the kernel reads ``[B, S, H, d]``
-strided, never repeats K and V for GQA, and skips the key blocks wholly
-above the diagonal.  See the source for its design.
+without a window.  Source: ``src/repro_torch/csrc/flash_attention.cu``,
+two kernels: ``route`` sends bf16 to the Hopper kernel ("wgmma": both
+products on the tensor cores, a TMA-fed K/V ring, a producer warpgroup)
+and f32 to the CUDA-core kernel ("simt"), whose bar of 2e-5 rules out
+TF32.  On the card attention is bound by operations (4 H d S^2 / 2 flops
+for causal attention at S tokens, on O(S H d) bytes); both kernels read
+``[B, S, H, d]`` strided, never repeat K and V for GQA, and skip the key
+blocks wholly above the diagonal.  See the source for their design.
 
 ``mha_plain`` is the same blocked online softmax in torch ops: a loop over
 key blocks of ``min(128, Sk)`` columns with all query rows vectorised, the
@@ -27,6 +30,7 @@ BLOCK = 128                       # the Pallas kernel's block_q and block_k
 HEAD_DIMS = (32, 64, 128)         # the kernel's instantiations
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
+KERNELS = ("wgmma", "simt")       # the Hopper kernel, the CUDA-core one
 
 
 def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -93,24 +97,49 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def route(q: torch.Tensor) -> str:
+    """The kernel that takes a CUDA call with this q (both are built for
+    every head size in ``HEAD_DIMS``): "wgmma", the Hopper kernel, for
+    bf16; "simt", the CUDA-core kernel, for f32."""
+    return "wgmma" if q.dtype == torch.bfloat16 else "simt"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as TMA reads it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    """Launch the kernel ``route`` names on checked inputs and count it:
+    ``mha.launches`` in all and ``mha.kernel_launches[name]`` by kernel,
+    both through the module-level name ``mha``.  A refused launch raises;
+    nothing falls back to the other kernel or to ``mha_plain``."""
+    from . import kernel
+    name = route(q)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    kernel.launch(q, k, v, out, causal, name)
+    mha.launches += 1
+    mha.kernel_launches[name] += 1
+    return out
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True) -> torch.Tensor:
     """q [B, Sq, H, d]; k, v [B, Sk, Hkv, d] -> [B, Sq, H, d] (f32 or bf16;
     ``check`` says which shapes).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
-    kernel (``mha.launches`` counts those launches)."""
+    A CPU tensor takes the plain version; a CUDA tensor launches a CUDA
+    kernel (``launch``)."""
     check(q, k, v)
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"mha: unsupported device {q.device}")
-    from . import kernel
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    kernel.launch(q, k, v, out, causal)
-    mha.launches += 1
-    return out
+    return launch(q, k, v, causal)
 
 
 mha.launches = 0
+mha.kernel_launches = dict.fromkeys(KERNELS, 0)

@@ -104,3 +104,98 @@ def test_refuses_what_the_kernel_does_not_take(what):
     with pytest.raises(ValueError):
         tops.mha(q, k, v)
 
+
+
+@pytest.mark.parametrize("d", tops.HEAD_DIMS)
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt")])
+def test_route_sends_bf16_to_the_hopper_kernel(d, dtype, want):
+    """bf16 at every head size goes to the Hopper kernel, f32 (whose bar of
+    2e-5 rules out TF32 tensor cores) to the CUDA-core kernel."""
+    assert tops.route(torch.zeros(1, 128, 2, d, dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_kernel_counters_stay_at_zero_on_the_cpu(dtype):
+    (_, _, _), (tq, tk, tv) = _inputs(1, 128, 2, 2, 64, dtype)
+    n, by_kernel = tops.mha.launches, dict(tops.mha.kernel_launches)
+    tops.mha(tq, tk, tv, causal=True)
+    assert tops.mha.launches == n
+    assert tops.mha.kernel_launches == by_kernel
+    assert set(by_kernel) == set(tops.KERNELS)
+
+
+def _counted(monkeypatch):
+    """Fresh counters on ``mha`` for one test."""
+    monkeypatch.setattr(tops.mha, "launches", 0)
+    monkeypatch.setattr(tops.mha, "kernel_launches",
+                        dict.fromkeys(tops.KERNELS, 0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_refused_launch_raises_and_never_falls_back(monkeypatch, dtype):
+    """The card's path (``ops.launch``, what ``mha`` calls for a CUDA
+    tensor) raises when the kernel's launch is refused: it takes neither
+    the other kernel nor the plain version, and counts nothing."""
+    from repro_torch.kernels.flash_attention import kernel as tkernel
+    _counted(monkeypatch)
+    tried = []
+
+    def refuse(q, k, v, out, causal, kernel):
+        tried.append(kernel)
+        raise RuntimeError(f"flash_attention ({kernel}) launch failed: "
+                           f"cudaError 1")
+
+    def no_plain(*a, **kw):
+        raise AssertionError("fell back to mha_plain")
+
+    monkeypatch.setattr(tkernel, "launch", refuse)
+    monkeypatch.setattr(tops, "mha_plain", no_plain)
+    (_, _, _), (tq, tk, tv) = _inputs(1, 128, 2, 2, 64, dtype)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tops.launch(tq, tk, tv, causal=True)
+    assert tried == [tops.route(tq)]
+    assert tops.mha.launches == 0
+    assert tops.mha.kernel_launches == dict.fromkeys(tops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_launch_counts_on_its_kernel_and_in_all(monkeypatch, dtype):
+    from repro_torch.kernels.flash_attention import kernel as tkernel
+    _counted(monkeypatch)
+    monkeypatch.setattr(tkernel, "launch", lambda *a: None)
+    (_, _, _), (tq, tk, tv) = _inputs(1, 128, 2, 2, 64, dtype)
+    out = tops.launch(tq, tk, tv, causal=True)
+    assert out.shape == tq.shape and out.dtype == tq.dtype
+    want = dict.fromkeys(tops.KERNELS, 0)
+    want[tops.route(tq)] = 1
+    assert (tops.mha.launches, tops.mha.kernel_launches) == (1, want)
+
+
+@pytest.mark.parametrize("code,why", [(-1, "no cuTensorMapEncodeTiled"),
+                                      (-2, "refused a tensor map"),
+                                      (98, "cudaError 98")])
+def test_the_binding_raises_on_an_error_code(monkeypatch, code, why):
+    """A nonzero return of the C entry point raises, with the Hopper
+    kernel's own refusals named; the Hopper kernel gets the largest key
+    norm of each kv head beside the inputs."""
+    from repro_torch.kernels.flash_attention import kernel as tkernel
+    seen = []
+
+    def entry(*args):
+        seen.append(args)
+        return code
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tkernel, "_fn", lambda kernel: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        Stream())
+    (_, _, _), (tq, tk, tv) = _inputs(1, 128, 2, 2, 64, "bfloat16")
+    with pytest.raises(RuntimeError, match=why):
+        tkernel.launch(tq, tk, tv, torch.empty_like(tq), True, "wgmma")
+    (args,) = seen
+    assert args[5:12] == (1, 128, 128, 2, 2, 64, 1)
+    assert args[-2] == pytest.approx(
+        tkernel.BOUND_ULPS * 2.0 ** -24 * 64 ** -0.5)
