@@ -46,6 +46,17 @@ every f32 call to the CUDA-core one, and times the Hopper kernel beside
 all the Hopper kernel's; phase 3b holds both again at phase 8's largest
 shape.
 
+The k-means Lloyd fits run in one launch each: ``kmeans_fit`` (the masked
+fit of the bucketed engine and of the serve profile) and
+``kmeans_fit_segmented`` (the default engine's fit), each followed by one
+launch of its assignment kernel for the final assignment.  Phases 4, 6, 7
+and 9 count the launches of all four k-means kernels (one fit: one launch
+of each kernel of its pair); phase 3b holds each fit kernel against its
+plain fit bitwise on test cases, on two streams at once and at the path
+shapes, and times them in turns; phase 5b times the paths' fits (config3
+segmented and bucketed, config7 bucketed, the serve profile) through the
+kernels and through the plain fits in turns.
+
 Every phase raises on failure.  Without CUDA, or without the rest of the
 repository, it exits non-zero and prints no result.
 
@@ -55,6 +66,7 @@ numbers and the card's name and power limit; the last line is
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -145,7 +157,8 @@ class Capture:
     def __call__(self, *args, **kw):
         if self.args is None or (self.largest and args[0].numel()
                                  > self.args[0].numel()):
-            self.args = tuple(a.clone() for a in args)
+            self.args = tuple(a.clone() if hasattr(a, "clone") else
+                              copy.deepcopy(a) for a in args)
         return self.fn(*args, **kw)
 
     # the wrapper counts through its module-level name, which is this
@@ -266,6 +279,354 @@ def check_dense(kops, x, centers, what: str) -> int:
         raise AssertionError(f"kmeans_assign kernel != plain on {bad} rows "
                              f"({what})")
     return int((a1 - a2).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the whole-fit k-means kernels (kmeans_fit, kmeans_fit_segmented)
+# ---------------------------------------------------------------------------
+def bits_equal(a, b) -> bool:
+    """Two f32 tensors equal bit for bit (the sign of zero included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def masked_case(b, n, d, rng, dev, k=4, empty=False, dead_row=None):
+    """Masked rows like the LERN fit's: L1-normalized small-integer
+    histograms at D > 1 (exact distance ties), min-max normalized log
+    counts at D = 1 (many equal rows); ragged valid counts, zero masked
+    rows; starting centres drawn from the unit cube.  ``empty`` moves the
+    last centre out of reach of every row (a cluster forced empty in the
+    first sweep); ``dead_row`` masks that batch row wholly."""
+    import numpy as np
+    import torch
+    x = np.zeros((b, n, d), np.float32)
+    mask = np.zeros((b, n), bool)
+    for i in range(b):
+        nv = 0 if i == dead_row else max(1, n - 37 * i)
+        if d > 1:
+            raw = rng.integers(0, 5, (nv, d)).astype(np.float32)
+            v = raw / np.maximum(raw.sum(1, keepdims=True), 1e-9)
+        elif nv:
+            v = np.log1p(rng.integers(2, 400, (nv, 1))).astype(np.float32)
+            v = (v - v.min()) / max(float(v.max() - v.min()), 1e-9)
+        else:
+            v = np.zeros((0, 1), np.float32)
+        x[i, :nv] = v
+        mask[i, :nv] = True
+    c0 = rng.random((b, k, d)).astype(np.float32)
+    if empty:
+        c0[:, -1] = 5.0
+    return tuple(torch.as_tensor(t, device=dev) for t in (x, mask, c0))
+
+
+def masked_inertia(x, mask, centers, a):
+    """``kmeans_fit_batched``'s inertia of a fit."""
+    import torch
+    from repro_torch.kernels.common import dot_fma
+    diff = x - torch.gather(centers, 1, a.to(torch.int64)[:, :, None]
+                            .expand(-1, -1, x.shape[2]))
+    return (dot_fma(diff, diff) * mask.to(x.dtype)).sum(1)
+
+
+def fit_masked_both(kops, x, mask, c0, iters):
+    """The fit through the kernels (``fit_masked`` then ``assign``) and
+    through the plain versions: (centres, assignments, inertia) each."""
+    out = []
+    for fit, assign in ((kops.fit_masked, kops.assign),
+                        (kops.fit_masked_plain, kops.assign_plain)):
+        c = fit(x, mask, c0, iters)
+        a = assign(x, c)
+        out.append((c, a, masked_inertia(x, mask, c, a)))
+    return out
+
+
+def hold_fit_masked(got, want, what) -> None:
+    """A fit kernel's (centres, assignments, inertia) against the plain
+    fit's, bitwise."""
+    import torch
+    torch.cuda.synchronize()
+    (ck, ak, ik), (cp, ap, ip) = got, want
+    if not (bits_equal(ck, cp) and torch.equal(ak, ap)
+            and bits_equal(ik, ip)):
+        raise AssertionError(
+            f"kmeans_fit kernel != plain fit ({what}): centres max |diff| "
+            f"{float((ck - cp).abs().max()):.3g} (bitwise "
+            f"{bits_equal(ck, cp)}), {int((ak != ap).sum())} assignments "
+            f"differ, inertia bitwise {bits_equal(ik, ip)}")
+
+
+def segmented_fit_case(sizes, d, k, rng, dev, lattice=False, empty=False):
+    """The flat-segmented layout (``segment_layout``) of normal rows x 3
+    (the test_kernels inputs) or of lattice rows (the exact distance
+    ties of LERN's features), normal starting centres; ``empty`` moves
+    each segment's last centre out of reach.  Returns x, seg, offsets,
+    counts, centres."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kmeans import segment_layout
+    off, total = segment_layout(sizes)
+    s = len(sizes)
+    x = np.zeros((total, d), np.float32)
+    seg = np.full(total, s, np.int32)
+    for i, n in enumerate(sizes):
+        x[off[i]:off[i] + n] = (np.round(rng.random((n, d)) * 6) / 6
+                                if lattice else rng.normal(size=(n, d)) * 3)
+        seg[off[i]:off[i] + n] = i
+    c0 = rng.normal(size=(s, k, d)).astype(np.float32)
+    if empty:
+        c0[:, -1] = 50.0
+    return (torch.as_tensor(x, device=dev), torch.as_tensor(seg, device=dev),
+            off, np.asarray(sizes, np.int32), torch.as_tensor(c0, device=dev))
+
+
+def fit_segmented_both(kops, x, seg, off, cnt, c0, iters):
+    """The segmented fit through the kernels (``fit_segmented`` then
+    ``assign_segmented``) and through the plain versions: (centres,
+    sweeps, converged, assignments) each."""
+    out = []
+    for fit, assign in ((kops.fit_segmented, kops.assign_segmented),
+                        (kops.fit_segmented_plain,
+                         kops.assign_segmented_plain)):
+        c, sw, conv = fit(x, seg, off, cnt, c0, iters)
+        out.append((c, sw, conv, assign(x, c, seg)))
+    return out
+
+
+def hold_fit_segmented(got, want, seg, what) -> dict:
+    """A segmented fit kernel's (centres, sweeps, converged, assignments
+    on the valid rows, n_iter) against the plain fit's, bitwise; returns
+    the sweeps."""
+    import torch
+    torch.cuda.synchronize()
+    (ck, sk, vk, ak), (cp, sp, vp, ap) = got, want
+    valid = seg < ck.shape[0]
+    ok = (bits_equal(ck, cp) and torch.equal(sk, sp) and torch.equal(vk, vp)
+          and torch.equal(ak[valid], ap[valid])
+          and int(sk.max()) == int(sp.max()))
+    if not ok:
+        raise AssertionError(
+            f"kmeans_fit_segmented kernel != plain fit ({what}): centres "
+            f"max |diff| {float((ck - cp).abs().max()):.3g} (bitwise "
+            f"{bits_equal(ck, cp)}), sweeps {sk.tolist()} vs {sp.tolist()}, "
+            f"converged {vk.tolist()} vs {vp.tolist()}, "
+            f"{int((ak != ap)[valid].sum())} assignments differ")
+    return {"sweeps": sk.tolist(), "converged": vk.tolist(),
+            "n_iter": int(sk.max())}
+
+
+def two_streams(run, cases) -> list:
+    """``run`` on each case, every call on a stream of its own, all
+    enqueued before any is waited for."""
+    import torch
+    main = torch.cuda.current_stream()
+    outs = []
+    for case in cases:
+        st = torch.cuda.Stream()
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            outs.append(run(*case))
+    torch.cuda.synchronize()
+    return outs
+
+
+def turns(fns: dict, reps: int) -> dict:
+    """Median wall ms of each named function, called in turns (one of
+    each, ``reps`` rounds after a warm-up round), every call ended by a
+    device sync."""
+    import torch
+    times = {name: [] for name in fns}
+    for rep in range(reps + 1):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+
+
+class PlainFits:
+    """While active, the port's Lloyd fits take the plain fits (torch, on
+    the card) in place of the whole-fit kernels: the route before them."""
+
+    def __init__(self, kops):
+        self.kops = kops
+
+    def __enter__(self):
+        self.saved = (self.kops.fit_masked, self.kops.fit_segmented)
+        self.kops.fit_masked = self.kops.fit_masked_plain
+        self.kops.fit_segmented = self.kops.fit_segmented_plain
+
+    def __exit__(self, *exc):
+        self.kops.fit_masked, self.kops.fit_segmented = self.saved
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def masked_chain(b, n, d) -> int:
+    """The longest chain of dependent adds in one sweep's sums of the
+    masked fit (``ops._lloyd_sums``'s order)."""
+    if d > 1:
+        blk = min(n, 256)
+        nb = -(-n // blk)
+        return (blk - 1) + int(nb * blk > n) + (nb - 1)
+    if b > 1 or n < 64:
+        return n - 1
+    lanes = 32 if 512 <= n < 4096 else 8
+    m = n // lanes * lanes
+    return (m // lanes - 1) + (lanes // 8 - 1) + 3 + (n - m)
+
+
+def segmented_chain(cnt, sweeps) -> int:
+    """The longest chain of dependent adds over a segmented fit: each
+    segment's sweeps times (7 in a block, its blocks, +0 if shorter than
+    the longest)."""
+    nbs = [-(-int(c) // 8) for c in cnt]
+    width = max(max(nbs), 1)
+    return max(int(sw) * (7 + max(nb - 1, 0) + int(nb < width))
+               for nb, sw in zip(nbs, sweeps))
+
+
+# (B, N, D, options) of the masked fit cases of phase 3b: the path's
+# largest bucket at D = 4 and 1, the D = 1 branches of the sums' order for
+# a batch of one (4 x 8 lanes, 8 lanes, in order), a fully masked row, a
+# cluster forced empty at D = 4 and 1, and K = 5 at D = 6 (the kernel's
+# instance for any K and D; the others are compiled for K = 4)
+FIT_MASKED_CASES = ((2, 32768, 4, {}), (2, 32768, 1, {}), (1, 4000, 1, {}),
+                    (1, 777, 1, {}), (1, 50, 1, {}),
+                    (3, 777, 1, {"dead_row": 2}),
+                    (2, 2048, 4, {"empty": True}),
+                    (2, 2048, 1, {"empty": True}), (2, 1000, 6, {"k": 5}))
+# (sizes, D, K, options) of the segmented fit cases: the test_kernels
+# sizes (D = 8 and K = 6 take the kernel's instance for any K and D),
+# lattice segments that settle at different sweeps, the same cut to 3
+# sweeps (a segment reaches iters), a cluster forced empty
+FIT_SEGMENTED_CASES = (([13, 8, 29], 4, 4, {}), ([100], 4, 4, {}),
+                       ([8, 8, 8, 8], 8, 4, {}), ([5, 300, 11], 4, 6, {}),
+                       ([40, 120, 17, 500, 3000, 9], 4, 4, {"lattice": True}),
+                       ([40, 120, 17, 500, 3000, 9], 4, 4,
+                        {"lattice": True, "iters": 3}),
+                       ([100, 37], 4, 4, {"empty": True}))
+FIT_ITERS = 50
+
+
+def check_fits(kops, masked_args, segmented_args, dev, launches) -> list:
+    """Phase 3b for the whole-fit kernels: each against its plain fit on
+    the card, bitwise, at the FIT_*_CASES, on two streams at once, and at
+    the shapes the paths handed them; there, the kernel and the plain fit
+    (the route before it) timed in turns.  Returns their ``kernels``
+    rows, with the chain floor beside the bound."""
+    import numpy as np
+    t0 = time.time()
+    rng = np.random.default_rng(5)
+    masked = []
+    for b, n, d, kw in FIT_MASKED_CASES:
+        case = masked_case(b, n, d, rng, dev, **kw)
+        hold_fit_masked(*fit_masked_both(kops, *case, FIT_ITERS),
+                        f"B={b} N={n} D={d} {kw}")
+        masked.append(case)
+    held = []
+    segmented = []
+    for sizes, d, k, kw in FIT_SEGMENTED_CASES:
+        kw = dict(kw)
+        iters = kw.pop("iters", FIT_ITERS)
+        case = segmented_fit_case(sizes, d, k, rng, dev, **kw)
+        held.append(hold_fit_segmented(
+            *fit_segmented_both(kops, *case, iters), case[1],
+            f"sizes={sizes} D={d} K={k} iters={iters} {kw}"))
+        segmented.append(case)
+    sweeps = [r["sweeps"] for r in held]
+    cut = FIT_SEGMENTED_CASES[5][3]["iters"]
+    if len(set(sweeps[4])) < 2 or not any(
+            sw == cut and not cv
+            for sw, cv in zip(sweeps[5], held[5]["converged"])):
+        raise AssertionError(f"the segmented cases do not cover segments "
+                             f"settling at different sweeps {sweeps[4]} and "
+                             f"one stopped at iters = {cut} {held[5]}")
+    pair = [masked[0], masked[7]]
+    for case, got in zip(pair, two_streams(
+            lambda x, m, c: kops.fit_masked(x, m, c, FIT_ITERS), pair)):
+        c = kops.fit_masked_plain(*case, FIT_ITERS)
+        if not bits_equal(got, c):
+            raise AssertionError("kmeans_fit kernel != plain fit on two "
+                                 "streams")
+    pair = [segmented[4], segmented[6]]
+    for case, got in zip(pair, two_streams(
+            lambda *a: kops.fit_segmented(*a, FIT_ITERS), pair)):
+        want = kops.fit_segmented_plain(*case, FIT_ITERS)
+        if not all(bits_equal(g, w) if g.is_floating_point() else
+                   bool((g == w).all()) for g, w in zip(got, want)):
+            raise AssertionError("kmeans_fit_segmented kernel != plain fit "
+                                 "on two streams")
+    log(f"[kmeans_fit] kernel == plain fit (centres bitwise, final "
+        f"assignments, inertia) at (B, N, D) = "
+        f"{[c[:3] for c in FIT_MASKED_CASES]} (a row fully masked, a "
+        f"cluster forced empty) and on two streams at once; "
+        f"[kmeans_fit_segmented] kernel == plain fit (centres bitwise, "
+        f"sweeps per segment, converged, final assignments, n_iter) on "
+        f"{len(FIT_SEGMENTED_CASES)} cases, sweeps {sweeps}, and on two "
+        f"streams; {time.time() - t0:.1f} s")
+
+    clock = sm_clock_mhz()
+    rows = []
+    x, mask, c0, iters = masked_args
+    got, want = fit_masked_both(kops, x, mask, c0, iters)
+    hold_fit_masked(got, want, "phase 6 path shape")
+    b, n, d = x.shape
+    k = c0.shape[1]
+    t = turns({"kernel": lambda: kops.fit_masked(x, mask, c0, iters),
+               "plain": lambda: kops.fit_masked_plain(x, mask, c0, iters)},
+              reps=3)
+    ev = time_ms(lambda: kops.fit_masked(x, mask, c0, iters), 20, 2)
+    rows.append(kernel_row(
+        "kmeans_fit", "cuda", "src/repro_torch/csrc/kmeans_assign.cu",
+        "src/repro/kernels/kmeans_assign/kernel.py:72", launches["kmeans_fit"],
+        float((got[0] - want[0]).abs().max()), t["kernel"], t["plain"],
+        iters * b * n * (4 * d + 1), iters * b * n * k * (4 * d + 3), None,
+        {"B": b, "N": n, "D": d, "K": k, "iters": iters,
+         "kernel_ms_events": ev}))
+    rows[-1]["chain_floor_ms"] = (iters * masked_chain(b, n, d) * 4
+                                  / (clock * 1e3))
+    x, seg, off, cnt, c0, iters = segmented_args
+    got, want = fit_segmented_both(kops, x, seg, off, cnt, c0, iters)
+    r = hold_fit_segmented(got, want, seg, "phase 4 path shape")
+    d = x.shape[1]
+    k = c0.shape[1]
+    runs = [-(-int(c) // 8) * 8 for c in cnt]
+    swept = sum(sw * run for sw, run in zip(r["sweeps"], runs))
+    t = turns({"kernel": lambda: kops.fit_segmented(x, seg, off, cnt, c0,
+                                                    iters),
+               "plain": lambda: kops.fit_segmented_plain(x, seg, off, cnt,
+                                                         c0, iters)}, reps=3)
+    ev = time_ms(lambda: kops.fit_segmented(x, seg, off, cnt, c0, iters),
+                 20, 2)
+    rows.append(kernel_row(
+        "kmeans_fit_segmented", "cuda",
+        "src/repro_torch/csrc/kmeans_assign_segmented.cu",
+        "src/repro/kernels/kmeans_assign/kernel.py:39",
+        launches["kmeans_fit_segmented"],
+        float((got[0] - want[0]).abs().max()), t["kernel"], t["plain"],
+        swept * (4 * d + 4), swept * k * (4 * d + 3), None,
+        {"P": x.shape[0], "D": d, "S": len(runs), "K": k, "iters": iters,
+         "sweeps": r["sweeps"], "kernel_ms_events": ev}))
+    rows[-1]["chain_floor_ms"] = (segmented_chain(cnt, r["sweeps"]) * 4
+                                  / (clock * 1e3))
+    for kr in rows:
+        log(f"[{kr['name']}] at path shape {kr['shape']}: whole fit "
+            f"{kr['ms']:.4f} ms against the plain fit on the card "
+            f"{kr['plain_ms']:.4f} ms (in turns); bound "
+            f"{kr['bound_ms'] * 1e3:.3f} us ({kr['bound_by']}), chain floor "
+            f"{kr['chain_floor_ms']:.4f} ms (4 cycles an add at "
+            f"{clock:.0f} MHz); launches {kr['launches']}")
+    return rows
 
 
 def close(a: float, b: float) -> bool:
@@ -737,7 +1098,7 @@ def main() -> int:
 
     import numpy as np
     from repro_torch import exp
-    from repro_torch.core import lern, llc, policies, sim
+    from repro_torch.core import kmeans, lern, llc, policies, sim
     from repro_torch.core.dram import default_model
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
@@ -848,12 +1209,15 @@ def main() -> int:
     p = sim.SimParams(**golden["params"])
     dram = default_model()
     hist, assign = hops.histogram, kops.assign_segmented
+    fit_seg, fit = kops.fit_segmented, kops.fit_masked
+    dense = kops.assign
     cap_h = Capture(hops, "histogram")
     cap_a = Capture(kops, "assign_segmented")
+    cap_fs = Capture(kops, "fit_segmented")
     t_llc = Timed(llc, "simulate_epoch")
     t_lern = Timed(sim, "train_model_batched")
-    hist.launches = 0
-    assign.launches = 0
+    hist.launches = assign.launches = fit_seg.launches = 0
+    fit.launches = dense.launches = 0
     t_main = time.time()
     t0 = time.time()
     deadline = sim.calibrated_deadline(CONFIG, p, dram, device=dev)
@@ -864,7 +1228,7 @@ def main() -> int:
     results = {}
     for name in golden["points"]:
         t0 = time.time()
-        h0, a0 = hist.launches, assign.launches
+        h0, a0, f0 = hist.launches, assign.launches, fit_seg.launches
         art = sim.load_artifacts(CONFIG, MIX, p)
         res = sim.drive_lane(sim.Lane(CONFIG, MIX, policies.get(name), p,
                                       dram, deadline, art, device=dev),
@@ -873,11 +1237,15 @@ def main() -> int:
         results[name] = res
         log(f"[main] {name}: {res.summary()} epochs {res.epochs} "
             f"wall {time.time() - t0:.1f} s launches ri_histogram "
-            f"{hist.launches - h0} assign_segmented {assign.launches - a0}")
+            f"{hist.launches - h0} kmeans_fit_segmented "
+            f"{fit_seg.launches - f0} kmeans_assign_segmented "
+            f"{assign.launches - a0}")
     wall_main = time.time() - t_main
     launches = {"ri_histogram": hist.launches,
-                "kmeans_assign_segmented": assign.launches}
-    for hook in (cap_h, cap_a, t_llc, t_lern):
+                "kmeans_fit_segmented": fit_seg.launches,
+                "kmeans_assign_segmented": assign.launches,
+                "kmeans_fit": fit.launches, "kmeans_assign": dense.launches}
+    for hook in (cap_h, cap_a, cap_fs, t_llc, t_lern):
         hook.restore()
     log(f"[main] wall {wall_main:.1f} s, launches {launches}; in "
         f"llc.simulate_epoch {t_llc.seconds:.1f} s ({t_llc.calls} chunks, "
@@ -885,8 +1253,15 @@ def main() -> int:
         f" ms a round, enqueue); in the LERN fit {t_lern.seconds:.2f} s "
         f"({t_lern.calls} fits); the rest is the host loop and the waits")
     for k, v in launches.items():
-        if v <= 0:
+        if v <= 0 and k not in ("kmeans_fit", "kmeans_assign"):
             raise AssertionError(f"the main path never launched {k}")
+    # one segmented LERN fit: one launch for its sweeps, one for its
+    # final assignment
+    if (launches["kmeans_fit_segmented"], launches["kmeans_assign_segmented"],
+            launches["kmeans_fit"], launches["kmeans_assign"]) != (1, 1, 0, 0):
+        raise AssertionError(f"phase 4 launches {launches}, want one "
+                             f"kmeans_fit_segmented and one "
+                             f"kmeans_assign_segmented launch (one fit)")
     for name, res in results.items():
         check_point(name, res, golden["points"][name])
     hy, sd = results["hydra"], results["arp-cs-as-d"]
@@ -906,21 +1281,24 @@ def main() -> int:
     if exp.PARAMS.get("full") != sim.SimParams(**system["params"]):
         raise AssertionError("the full preset differs from the golden's")
     plan = exp.ExecPlan(**system["plan"])
-    dense = kops.assign
     cap_d = Capture(kops, "assign", largest=True)
+    cap_fm = Capture(kops, "fit_masked", largest=True)
     t_lanes = Timed(llc, "simulate_epoch_lanes")
     t_llc = Timed(llc, "simulate_epoch")
     t_fit = [Timed(sim, "train_model_batched"),
              Timed(sim, "train_family_batched")]
     hist.launches = assign.launches = dense.launches = 0
+    fit.launches = fit_seg.launches = 0
     t0 = time.time()
     rs = exp.run(spec, plan=plan, device=dev)
     torch.cuda.synchronize()
     wall_sys = time.time() - t0
     sys_launches = {"ri_histogram": hist.launches,
+                    "kmeans_fit": fit.launches,
                     "kmeans_assign": dense.launches,
+                    "kmeans_fit_segmented": fit_seg.launches,
                     "kmeans_assign_segmented": assign.launches}
-    for hook in (cap_d, t_lanes, t_llc, *t_fit):
+    for hook in (cap_d, cap_fm, t_lanes, t_llc, *t_fit):
         hook.restore()
     llc_s = t_lanes.seconds + t_llc.seconds
     fit_s = sum(t.seconds for t in t_fit)
@@ -937,9 +1315,13 @@ def main() -> int:
         f"{rounds} rounds); LERN fit {fit_s:.2f} s "
         f"({sum(t.calls for t in t_fit)} fits); host loop and waits "
         f"{wall_sys - llc_s - fit_s:.1f} s")
-    if dense.launches <= 0 or hist.launches <= 0:
-        raise AssertionError(f"the exp.run path did not launch every kernel "
-                             f"of its fit: {sys_launches}")
+    # twelve masked fits: one launch each for the sweeps and one for the
+    # final assignment
+    if (hist.launches <= 0 or (fit.launches, dense.launches) != (12, 12)
+            or fit_seg.launches or assign.launches):
+        raise AssertionError(f"the exp.run path launched {sys_launches}, "
+                             f"want ri_histogram and 12 kmeans_fit + 12 "
+                             f"kmeans_assign launches (12 bucketed fits)")
     got = {row["policy"]: row["result"] for row in rs.to_rows()}
     for name, want in system["points"].items():
         compare(json.loads(json.dumps(system_point(got[name]))), want,
@@ -986,7 +1368,8 @@ def main() -> int:
 
     # 7. LERN prediction accuracy on config7 under the bucketed engine
     acc_want = system["lern_accuracy"]
-    dense.launches = hist.launches = 0
+    dense.launches = hist.launches = fit.launches = 0
+    fit_seg.launches = assign.launches = 0
     t0 = time.time()
     with lern.fit_engine_override(acc_want["fit_engine"]):
         model = sim.load_lern(acc_want["config"], acc_want["variant"],
@@ -994,11 +1377,18 @@ def main() -> int:
     tr = sim.load_trace(acc_want["config"], acc_want["subsample_target"])
     acc = lern.prediction_accuracy(model, tr)
     log(f"[accuracy] {acc_want['config']} bucketed fit {time.time() - t0:.1f}"
-        f" s, launches kmeans_assign {dense.launches} ri_histogram "
+        f" s, launches kmeans_fit {fit.launches} kmeans_assign "
+        f"{dense.launches} kmeans_fit_segmented {fit_seg.launches} "
+        f"kmeans_assign_segmented {assign.launches} ri_histogram "
         f"{hist.launches}; accuracy {acc!r} (golden "
         f"{acc_want['accuracy']!r})")
-    if dense.launches <= 0:
-        raise AssertionError("the config7 fit never launched kmeans_assign")
+    if ((fit.launches, dense.launches, fit_seg.launches, assign.launches)
+            != (20, 20, 0, 0) or hist.launches <= 0):
+        raise AssertionError(f"the config7 fit launched kmeans_fit "
+                             f"{fit.launches}, kmeans_assign "
+                             f"{dense.launches} and ri_histogram "
+                             f"{hist.launches} times; want 20, 20 and more "
+                             f"than 0 (20 bucketed fits)")
     if acc != acc_want["accuracy"] or not acc > 0.7:
         raise AssertionError(f"prediction accuracy {acc} != golden "
                              f"{acc_want['accuracy']} or not > 0.7")
@@ -1068,9 +1458,13 @@ def main() -> int:
         f"{g8['weights_s']:.1f} s, phase {time.time() - t0:.1f} s")
 
     # 9. the server answers requests on the 28-layer model
-    dense.launches = flash.launches = 0
+    dense.launches = flash.launches = fit.launches = 0
+    fit_seg.launches = assign.launches = 0
     eng = run_engine(cfg, params, lm_golden["serve"], dev)
-    serve_launches = {"kmeans_assign": dense.launches,
+    serve_launches = {"kmeans_fit": fit.launches,
+                      "kmeans_assign": dense.launches,
+                      "kmeans_fit_segmented": fit_seg.launches,
+                      "kmeans_assign_segmented": assign.launches,
                       "flash_attention": flash.launches}
     log(f"[serve] ServeEngine(slots {lm_golden['serve']['slots']}, s_max"
         f" {lm_golden['serve']['s_max']}) on the {cfg.n_layers}-layer "
@@ -1087,10 +1481,11 @@ def main() -> int:
         f"{pr['device_ms_per_step'] / pr['wall_ms_per_step']:.1%}), "
         f"{pr['kernels_per_step']:.0f} kernels a step; most device "
         f"time (ms a step): {pr['top']}" if pr else "not measured"))
-    if dense.launches != 51:
-        raise AssertionError(f"the serving path launched kmeans_assign "
-                             f"{dense.launches} times, want 51 (one profile "
-                             f"fit)")
+    if (fit.launches, dense.launches, fit_seg.launches,
+            assign.launches) != (1, 1, 0, 0):
+        raise AssertionError(f"the serving path launched {serve_launches}, "
+                             f"want one kmeans_fit and one kmeans_assign "
+                             f"launch (one profile fit)")
     del params
 
     # 3b. the kernels at the shapes the paths handed them
@@ -1137,6 +1532,9 @@ def main() -> int:
         time_ms(lambda: kops.assign_plain(x, centers)),
         x.element_size() * (b * nd * d + b * k * d) + 4 * b * nd,
         b * nd * k * (2 * d + 2), None, {"B": b, "N": nd, "D": d, "K": k}))
+    kernels += check_fits(kops, cap_fm.args, cap_fs.args, dev, {
+        "kmeans_fit": sys_launches["kmeans_fit"],
+        "kmeans_fit_segmented": launches["kmeans_fit_segmented"]})
     q, k, v = cap_f.args
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -1184,6 +1582,54 @@ def main() -> int:
             raise AssertionError(f"LERN fit card vs CPU differs in {f}")
     log(f"[lern] two fits on the card identical and equal to the CPU fit "
         f"(tables and centres); one fit {t_fit:.2f} s")
+    # 5b. the fits of the paths through the whole-fit kernels against the
+    # plain fits on the card (the route before them), in turns
+    tr7 = sim.load_trace(acc_want["config"], acc_want["subsample_target"])
+    serve_g = lm_golden["serve"]
+
+    def lern_fit(trace, engine):
+        with lern.fit_engine_override(engine):
+            return lern.train_model_batched(trace, device=dev)
+
+    def profile_fit():
+        from repro_torch.serve import SessionProfile
+        return SessionProfile.fit(np.asarray(serve_g["session_turns"]),
+                                  np.asarray(serve_g["session_gaps"]),
+                                  seed=serve_g["profile_seed"], device=dev)
+
+    def plain_route(fn):
+        with PlainFits(kops):
+            return fn()
+
+    for name, fn, keys in (
+            (f"{CONFIG} segmented LERN fit",
+             lambda: lern_fit(tr, "segmented"), fields),
+            (f"{CONFIG} bucketed LERN fit", lambda: lern_fit(tr, "bucketed"),
+             fields),
+            (f"{acc_want['config']} bucketed LERN fit",
+             lambda: lern_fit(tr7, "bucketed"), fields),
+            ("serve profile fit", profile_fit, ("rc_centers", "ri_centers"))):
+        got, want = fn(), plain_route(fn)
+        for f in keys:
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"{name}: the kernels' fit and the plain "
+                                     f"fit differ in {f}")
+        t = turns({"kernels": fn, "plain": lambda: plain_route(fn)}, reps=2)
+        seeding = [Timed(kmeans, "_plus_plus_init_masked"),
+                   Timed(kmeans, "_plus_plus_init_segmented")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        once = time.perf_counter() - t0
+        for hook in seeding:
+            hook.restore()
+        log(f"[fit] {name}: through the whole-fit kernels {t['kernels']:.2f} "
+            f"ms, through the plain fits on the card {t['plain']:.2f} ms (in "
+            f"turns, medians of 2); equal results; of one more fit through "
+            f"the kernels ({once * 1e3:.2f} ms), "
+            f"{sum(h.seconds for h in seeding) * 1e3:.2f} ms on the host in "
+            f"the k-means++ seeding")
     log(f"[done] whole script {time.time() - t_script:.1f} s after import")
 
     log(json.dumps({"kernels": [{k: v for k, v in kr.items() if k != "shape"}

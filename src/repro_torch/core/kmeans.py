@@ -7,12 +7,15 @@ the JAX package given the same keys:
 
 * ``kmeans_fit_masked`` / ``kmeans_fit_batched`` -- the bucketed engine's
   fit: fixed-shape and mask-aware, with a real leading batch axis (the
-  JAX package vmaps the single fit).  50 fixed Lloyd sweeps; the
-  assignment step runs through the dense ``kmeans_assign`` kernel on the
-  card.
+  JAX package vmaps the single fit).  50 fixed Lloyd sweeps, on the card
+  in one launch of the ``kmeans_fit`` kernel (``kmeans_assign.ops
+  .fit_masked``); the final assignment runs through the dense
+  ``kmeans_assign`` kernel.
 * ``kmeans_fit_segmented`` -- the default engine's fit: every segment's
   (layer's RC or RI feature set's) Lloyd fit over ONE flat ``[P, D]``
-  point array, through the ``kmeans_assign_segmented`` kernel.
+  point array, on the card in one launch of the ``kmeans_fit_segmented``
+  kernel (``ops.fit_segmented``); the final assignment runs through the
+  ``kmeans_assign_segmented`` kernel.
 
 Every float reduction runs in a fixed order, never through atomics, so
 two runs on the card give identical centres:
@@ -21,7 +24,7 @@ two runs on the card give identical centres:
 * the k-means++ inverse-CDF prefix sums replay ``jax.lax.associative_scan``
   step for step (``_assoc_scan``);
 * the Lloyd centre sums add each block's 8 rows in order, then each
-  segment's block sums in order (``_seq_sum``), so a segment's sums do not
+  segment's block sums in order (``seq_sum``), so a segment's sums do not
   depend on where its rows sit in the array -- straggler compaction keeps
   its trajectory.
 
@@ -30,7 +33,7 @@ The orders are those XLA's CPU backend uses for the JAX package's fits
 (``dot_fma``), its block reduction and sorted segment scatter-add run in
 index order.  The masked fit adds XLA's matrix-product order for
 ``x @ centers.T`` (``dot_lanes``) and for the Lloyd sums
-``one_hot.T @ x`` (``_lloyd_sums``), and XLA's rewrite of ``cumsum``
+``one_hot.T @ x`` (``ops._lloyd_sums``), and XLA's rewrite of ``cumsum``
 (``_xla_cumsum``).  So the port's fits on the CPU are bitwise the JAX
 package's on the CPU wherever XLA's code follows those rules.
 
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..kernels.common import SEG_BLOCK, dot_fma, dot_lanes, round_up
+from ..kernels.common import SEG_BLOCK, dot_fma, round_up, seq_sum
 from ..kernels.kmeans_assign import ops as _kops
 from . import prng
 
@@ -68,12 +71,6 @@ class SegmentedKMeansResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # masked fit (the bucketed LERN engine's k-means)
 # ---------------------------------------------------------------------------
-# XLA's CPU matrix product adds the Lloyd sums one_hot.T @ x for D > 1 in
-# blocks of this many rows along N, each block from zero in row order, the
-# block sums in turn (measured for N <= 2048).  For D = 1 (a matrix-vector
-# product) it adds in row order when batched; unbatched (or a batch of
-# one) it runs vectorized code: ``_vector_sum``.
-LLOYD_SUM_BLOCK = 256
 # XLA rewrites a cumsum of length N into prefix sums over rows of this
 # length plus a (recursive) prefix sum of the row totals.
 CUMSUM_BASE = 16
@@ -111,68 +108,6 @@ def _xla_cumsum(w: torch.Tensor) -> torch.Tensor:
     return (rows + excl[..., None]).reshape(w.shape[:-1] + (-1,))[..., :n]
 
 
-def _halve(v: np.ndarray) -> np.ndarray:
-    """Sum over axis 0 (a power of two long) by halving: lane i plus lane
-    i + len/2, and again -- LLVM's reduction of a vector register."""
-    while v.shape[0] > 1:
-        h = v.shape[0] // 2
-        v = (v[:h] + v[h:]).astype(np.float32)
-    return v[0]
-
-
-def _vector_sum(v: np.ndarray) -> np.ndarray:
-    """Sum over axis 0 of v [N, ...] in the order of XLA's CPU code for
-    the unbatched f32 matrix-vector product in the LERN fit's
-    ``_fit_layer`` (read off the compiled code and checked on its fits
-    for N = 8..32768): for 512 <= N < 4096 the loop vectorizer's 4 x 8
-    lanes (row n into part n // 8 % 4, lane n % 8; the parts folded as
-    ((p1 + p0) + p2) + p3), otherwise from N = 64 the row-major GEMV's 8
-    lanes (row n into lane n % 8); each lane adds its rows in order from
-    zero, the lanes reduce by halving, and rows past the last full step
-    (and all rows for N < 64) add in order."""
-    n = v.shape[0]
-    parts, lanes = (4, 8) if 512 <= n < 4096 else (1, 8)
-    step = parts * lanes
-    m = (n // step) * step if n >= 64 else 0
-    if m == 0:
-        return np.cumsum(v, axis=0, dtype=np.float32)[-1]
-    acc = np.cumsum(v[:m].reshape((m // step, parts, lanes) + v.shape[1:]),
-                    axis=0, dtype=np.float32)[-1]
-    w = acc[0]
-    for p in range(1, parts):
-        w = (acc[p] + w).astype(np.float32)
-    out = _halve(w)
-    for t in range(m, n):
-        out = (out + v[t]).astype(np.float32)
-    return out
-
-
-def _lloyd_sums(oh: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``one_hot.T @ x`` per batch row -- oh [B, N, K] of 0/1, x [B, N, D]
-    -> [B, K, D] -- in XLA's order: for D > 1 blocks of
-    ``LLOYD_SUM_BLOCK`` rows, each added from zero in row order, the
-    block sums in turn; for D = 1 all rows in order, or, for a batch of
-    one, ``_vector_sum``'s order.
-
-    The f32 sums run on the host (numpy's ``cumsum`` adds in order, in
-    f32): a chain of N dependent adds is one sequential loop there, where
-    it would be N launches on the card."""
-    b, n, k = oh.shape
-    d = x.shape[-1]
-    v = (oh[..., :, :, None] * x[..., :, None, :]).cpu().numpy()
-    if d == 1 and b == 1:
-        return torch.as_tensor(_vector_sum(v[0])[None], device=x.device)
-    blk = n if d == 1 else min(n, LLOYD_SUM_BLOCK)
-    nb = -(-n // blk)
-    if nb * blk != n:
-        v = np.concatenate([v, np.zeros((b, nb * blk - n, k, d), v.dtype)],
-                           1)
-    part = np.cumsum(v.reshape(b, nb, blk, k, d), axis=2,
-                     dtype=np.float32)[:, :, -1]            # [B, nb, K, D]
-    sums = np.cumsum(part, axis=1, dtype=np.float32)[:, -1]
-    return torch.as_tensor(sums, device=x.device)
-
-
 def _pick_masked(keys: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF draw from unnormalized ``weights`` [B, N] (masked
     entries 0), one per batch row: the index whose cumulative weight
@@ -207,33 +142,6 @@ def _plus_plus_init_masked(keys, x, mask, k):
     return centers
 
 
-def _lloyd_masked(x, mask, centers, k: int, iters: int, use_kernel: bool):
-    """``iters`` Lloyd sweeps over the masked points of every batch row
-    (no early exit, as the JAX package's fixed-length scan); empty
-    clusters re-seed at the row's farthest valid point."""
-    bsz = x.shape[0]
-    rows = torch.arange(bsz, device=x.device)
-    fmask = mask.to(x.dtype)
-    x2 = dot_fma(x, x)                                      # [B, N]
-    for _ in range(iters):
-        c2 = dot_fma(centers, centers)                      # [B, K]
-        sc = c2[:, None, :] - 2.0 * dot_lanes(x[:, :, None, :],
-                                              centers[:, None, :, :])
-        if use_kernel:
-            a = _kops.assign(x, centers)
-        else:
-            a = torch.argmin(sc, 2)
-        oh = torch.nn.functional.one_hot(a.to(torch.int64), k).to(
-            x.dtype) * fmask[:, :, None]
-        counts = oh.sum(1)              # integer-valued: exact in any order
-        new = _lloyd_sums(oh, x) / torch.clamp(counts, min=1.0)[:, :, None]
-        far_score = torch.where(mask, x2 + sc.amin(2), -torch.inf)
-        far = x[rows, torch.argmax(far_score, 1)]           # [B, D]
-        centers = torch.where((counts > 0)[:, :, None], new,
-                              far[:, None, :])
-    return centers
-
-
 def kmeans_fit_batched(x, mask, keys, k: int = 4, iters: int = 50,
                        use_kernel: bool = True,
                        device="cuda") -> KMeansResult:
@@ -244,18 +152,21 @@ def kmeans_fit_batched(x, mask, keys, k: int = 4, iters: int = 50,
 
     The counterpart of the JAX package's vmapped ``kmeans_fit_batched``:
     the batch is a tensor axis of every op.  ``use_kernel`` sends the
-    assignment step through ``kmeans_assign.ops.assign`` (the kernel on a
-    CUDA tensor, its plain version on a CPU tensor); without it the argmin
-    is taken from the same scores in torch.  The inputs move to
-    ``device``; the result lives there."""
+    Lloyd sweeps through ``kmeans_assign.ops.fit_masked`` and the final
+    assignment through ``ops.assign`` (the kernels on a CUDA tensor,
+    their plain versions on a CPU tensor); without it both take the plain
+    versions.  The inputs move to ``device``; the result lives there."""
     dev = _device.resolve(device)
     x = torch.as_tensor(x, device=dev)
     mask = torch.as_tensor(mask, device=dev)
     keys = torch.as_tensor(keys, device=dev)
-    centers = _lloyd_masked(x, mask, _plus_plus_init_masked(keys, x, mask, k),
-                            k, iters, use_kernel)
-    a = (_kops.assign(x, centers) if use_kernel
-         else _kops.assign_plain(x, centers))
+    centers0 = _plus_plus_init_masked(keys, x, mask, k)
+    if use_kernel:
+        centers = _kops.fit_masked(x, mask, centers0, iters)
+        a = _kops.assign(x, centers)
+    else:
+        centers = _kops.fit_masked_plain(x, mask, centers0, iters)
+        a = _kops.assign_plain(x, centers)
     cg = torch.gather(centers, 1, a.to(torch.int64)[:, :, None].expand(
         -1, -1, x.shape[2]))
     diff = x - cg
@@ -309,15 +220,6 @@ def segment_layout(counts, block: int = SEG_BLOCK):
         offsets.append(cur)
         cur += ((int(n) + block - 1) // block) * block
     return np.asarray(offsets, np.int32), cur
-
-
-def _seq_sum(v: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` adding its entries in ascending order."""
-    v = v.movedim(dim, 0)
-    out = v[0]
-    for t in range(1, v.shape[0]):
-        out = out + v[t]
-    return out
 
 
 def _assoc_scan(fn, elems):
@@ -385,89 +287,14 @@ def _plus_plus_init_segmented(keys, x, seg, seg_off, seg_cnt, n_seg, k):
                           device=x.device)
     centers[:, 0] = x[seg_off + t]
     # masked min-d² maintained incrementally (min is exact)
-    dmin = _seq_sum((x - centers[segc, 0]) ** 2, -1)
+    dmin = seq_sum((x - centers[segc, 0]) ** 2, -1)
     for i in range(1, k):
         pick = _seg_pick(prng.uniform(ks[:, i]), dmin * fvalid, seg,
                          seg_off, seg_cnt, n_seg)
         centers[:, i] = x[pick]
         dmin = torch.minimum(dmin,
-                             _seq_sum((x - centers[segc, i]) ** 2, -1))
+                             seq_sum((x - centers[segc, i]) ** 2, -1))
     return centers
-
-
-def _segment_blocks(seg: torch.Tensor, n_seg: int):
-    """[S, max_blocks] indices of each segment's row blocks (in order),
-    padded with ``nb`` -- the index of an all-zero row appended to a
-    per-block table."""
-    bseg = seg[::SEG_BLOCK].to(torch.int64).cpu().numpy()
-    nb = bseg.shape[0]
-    real = np.flatnonzero(bseg < n_seg)
-    counts = np.bincount(bseg[real], minlength=n_seg)
-    starts = np.full(n_seg, nb)
-    np.minimum.at(starts, bseg[real], real)
-    width = max(int(counts.max(initial=0)), 1)
-    j = np.arange(width)[None, :]
-    idx = np.where(j < counts[:, None], starts[:, None] + j, nb)
-    return torch.as_tensor(idx, device=seg.device), nb
-
-
-def _lloyd_segmented(x: torch.Tensor, seg: torch.Tensor,
-                     centers0: torch.Tensor, n_seg: int, k: int, iters: int):
-    """Up to ``iters`` segment-wise Lloyd sweeps from ``centers0``, exiting
-    as soon as every segment repeats its centres bitwise (a fixed point of
-    the deterministic per-segment map).  Returns (centers, n_iter,
-    converged [S] bool).  Empty clusters reseed at the segment's farthest
-    valid point."""
-    p, f = x.shape
-    dev = x.device
-    valid = seg < n_seg
-    fvalid = valid.to(x.dtype)
-    segc = torch.clamp(seg, max=n_seg - 1).to(torch.int64)
-    x2 = dot_fma(x, x)
-    nb = p // SEG_BLOCK
-    bseg = seg[::SEG_BLOCK].to(torch.int64)
-    blocks, _ = _segment_blocks(seg, n_seg)
-    arange_p = torch.arange(p, dtype=torch.int64, device=dev)
-    centers = centers0
-    conv = torch.zeros(n_seg, dtype=torch.bool, device=dev)
-    n_iter = 0
-    while n_iter < iters:
-        a = _kops.assign_segmented(x, centers, seg).to(torch.int64)
-        # nearest-centroid score without the [P, K, D] gather the kernel
-        # exists to avoid: min_k sc == sc[a] by definition
-        cga = centers[segc, a]                              # [P, D]
-        min_sc = dot_fma(cga, cga) - 2.0 * dot_fma(x, cga)
-        oh = torch.nn.functional.one_hot(a, k).to(x.dtype) * fvalid[:, None]
-        # two-stage segment reduction: per-block partial sums (one segment
-        # per block), then each segment's blocks in order
-        pw = _seq_sum((oh[:, :, None] * x[:, None, :]).reshape(
-            nb, SEG_BLOCK, k * f), 1)
-        pc = oh.reshape(nb, SEG_BLOCK, k).sum(1)
-        sums = _seq_sum(torch.cat([pw, pw.new_zeros((1, k * f))])[blocks],
-                        1).reshape(n_seg, k, f)
-        # integer-valued, so exact in any order
-        counts = torch.cat([pc, pc.new_zeros((1, k))])[blocks].sum(1)
-        new = sums / torch.clamp(counts, min=1.0)[:, :, None]
-        empty = counts == 0
-        if bool(empty.any()):
-            far_score = torch.where(valid, x2 + min_sc, -torch.inf)
-            bmax = far_score.reshape(nb, SEG_BLOCK).amax(1)
-            m = torch.full((n_seg + 1,), -torch.inf, dtype=x.dtype,
-                           device=dev).scatter_reduce_(
-                0, bseg, bmax, "amax")[:n_seg]
-            pos = torch.where(valid & (far_score == m[segc]), arange_p, p)
-            bmin = pos.reshape(nb, SEG_BLOCK).amin(1)
-            fi = torch.full((n_seg + 1,), np.iinfo(np.int32).max,
-                            dtype=torch.int64, device=dev).scatter_reduce_(
-                0, bseg, bmin, "amin")[:n_seg]
-            far = x[torch.clamp(fi, 0, p - 1)]             # [S, D]
-            new = torch.where(empty[:, :, None], far[:, None, :], new)
-        conv = (new == centers).reshape(n_seg, -1).all(1)
-        centers = new
-        n_iter += 1
-        if bool(conv.all()):
-            break
-    return centers, n_iter, conv
 
 
 def kmeans_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
@@ -480,10 +307,15 @@ def kmeans_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
     ``seg`` holds each row's segment id (``n_seg`` marks pad rows); each
     segment's rows are contiguous starting at ``seg_off[s]`` with
     ``seg_cnt[s]`` real points, runs padded to ``SEG_BLOCK`` multiples
-    (``segment_layout``).  A first ``first_chunk``-sweep pass settles most
-    segments at their bitwise Lloyd fixed point; then the unconverged
-    segments' rows are compacted (block-aligned, so their trajectory is
-    untouched) and only those sweep on.  ``x``, ``seg`` and ``keys``
+    (``segment_layout``).  On the card one launch of the
+    ``kmeans_fit_segmented`` kernel sweeps every segment to its own
+    bitwise Lloyd fixed point (``ops.fit_segmented``).  On the CPU a first
+    ``first_chunk``-sweep pass settles most segments; then the
+    unconverged segments' rows are compacted (block-aligned, so their
+    trajectory is untouched) and only those sweep on.  A segment at its
+    fixed point stays there, so both schedules give the same centres and
+    ``n_iter`` (the most sweeps any segment ran); ``first_chunk >=
+    iters`` makes the CPU run the card's one pass.  ``x``, ``seg`` and ``keys``
     (``[S, 2]``, ``prng`` keys) move to ``device``; the result lives
     there.  Seeding and update math mirror the JAX package's
     ``kmeans.kmeans_fit_segmented``, so the fit is assignment-equal to it
@@ -498,11 +330,12 @@ def kmeans_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
     cnt_t = torch.as_tensor(np.asarray(seg_cnt), dtype=torch.int64,
                             device=dev)
     centers0 = _plus_plus_init_segmented(keys, x, seg, off_t, cnt_t, n_seg, k)
-    it1 = min(first_chunk, iters)
-    centers, total, conv = _lloyd_segmented(x, seg, centers0, n_seg, k, it1)
-    conv_np = conv.cpu().numpy()
-    if it1 < iters and not conv_np.all():
-        stragglers = np.flatnonzero(~conv_np)
+    it1 = iters if dev.type == "cuda" else min(first_chunk, iters)
+    centers, sweeps, conv = _kops.fit_segmented(x, seg, seg_off, seg_cnt,
+                                                centers0, it1)
+    total = int(sweeps.max())
+    if it1 < iters and not bool(conv.all()):
+        stragglers = np.flatnonzero(~conv.cpu().numpy())
         xh = x.cpu().numpy()
         counts = np.asarray(seg_cnt)[stragglers]
         sub_off, sub_total = segment_layout(counts)
@@ -516,10 +349,10 @@ def kmeans_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
             xs[sub_off[si]:sub_off[si] + run] = xh[o:o + run]
             segs[sub_off[si]:sub_off[si] + int(counts[si])] = si
         strag_t = torch.as_tensor(stragglers, device=dev)
-        sub_centers, n2, _ = _lloyd_segmented(
+        sub_centers, n2, _ = _kops.fit_segmented(
             torch.as_tensor(xs, device=dev), torch.as_tensor(segs, device=dev),
-            centers[strag_t], n_sub, k, iters - it1)
-        total += n2
+            sub_off, counts, centers[strag_t], iters - it1)
+        total += int(n2.max())
         centers = centers.clone()
         centers[strag_t] = sub_centers
     a = _kops.assign_segmented(x, centers, seg)

@@ -55,6 +55,15 @@ def dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def seq_sum(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` adding its entries in ascending order."""
+    v = v.movedim(dim, 0)
+    out = v[0]
+    for t in range(1, v.shape[0]):
+        out = out + v[t]
+    return out
+
+
 def dot_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum_d a[..., d] * b[..., d]`` in the arithmetic of XLA's CPU
     matrix product (``x @ centers.T``), measured on the JAX package: for

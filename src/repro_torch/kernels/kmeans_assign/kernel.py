@@ -1,5 +1,6 @@
 """ctypes bindings of ``csrc/kmeans_assign_segmented.cu`` and
-``csrc/kmeans_assign.cu`` (built by ``kernels._build`` at first use)."""
+``csrc/kmeans_assign.cu`` (built by ``kernels._build`` at first use): the
+two assignment kernels and the two whole-fit kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -11,10 +12,13 @@ from .. import _build
 _FNS = {}
 
 
-def _fn(name: str, n_ptr: int, n_int: int):
+def _fn(name: str, n_ptr: int, n_int: int, lib: str = None):
+    """The C function ``name`` of ``csrc/<lib>.cu`` (``lib`` defaults to
+    ``name``) with ``n_ptr`` pointer and ``n_int`` int arguments and a
+    stream."""
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(_build.load(name), name)
+        fn = getattr(_build.load(lib or name), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -52,3 +56,35 @@ def launch_dense(x: torch.Tensor, centers: torch.Tensor,
     _check("kmeans_assign", _fn("kmeans_assign", 3, 5)(
         x.data_ptr(), centers.data_ptr(), out.data_ptr(), b, n, k, d,
         int(x.dtype == torch.bfloat16), _stream(x)))
+
+
+def launch_fit(x: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor,
+               out: torch.Tensor, a: torch.Tensor, iters: int) -> None:
+    """Enqueue the masked Lloyd fit on the current stream: x [B, N, D] f32,
+    mask [B, N] bool, centers and out [B, K, D] f32, a [B, N] uint8
+    scratch (contiguous, shapes checked by the caller); raise if the
+    launch was refused."""
+    b, n, d = x.shape
+    k = centers.shape[1]
+    _check("kmeans_fit", _fn("kmeans_fit", 5, 5, "kmeans_assign")(
+        x.data_ptr(), mask.data_ptr(), centers.data_ptr(), out.data_ptr(),
+        a.data_ptr(), b, n, k, d, iters, _stream(x)))
+
+
+def launch_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
+                         layout: torch.Tensor, centers: torch.Tensor,
+                         out: torch.Tensor, sweeps: torch.Tensor,
+                         conv: torch.Tensor, a: torch.Tensor, iters: int,
+                         width: int) -> None:
+    """Enqueue every segment's Lloyd fit on the current stream: x [P, D]
+    f32, seg [P] int32, layout [2, S] int32 (first rows, row counts),
+    centers and out [S, K, D] f32, sweeps [S] int32, conv [S] bool, a [P]
+    uint8 scratch (contiguous, shapes checked by the caller); raise if the
+    launch was refused."""
+    p, d = x.shape
+    s, k, _ = centers.shape
+    _check("kmeans_fit_segmented", _fn("kmeans_fit_segmented", 8, 6,
+                                                "kmeans_assign_segmented")(
+        x.data_ptr(), seg.data_ptr(), layout.data_ptr(), centers.data_ptr(),
+        out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(), a.data_ptr(),
+        p, s, k, d, iters, width, _stream(x)))

@@ -29,6 +29,9 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 (stats and final KV caches), ``SessionProfile.fit`` and
                 ``classify``, and a scheduler drive under an injected
                 ``refit`` fault (``tests/test_torch_serve.py``), pickled.
+* ``kmeans_fit`` -- the JAX masked, LERN-layer and segmented k-means fits
+                of the ``KMEANS_*`` cases (``tests/test_torch_kmeans_fit.py``),
+                pickled.
 * ``lm_golden`` -- qwen3-1.7b at full width with its depth cut to 2 layers
                 on ``convert.lm_numpy_params(cfg, seed=0)``: last-token
                 logits of both prefill routes and 8 decode steps, plus the
@@ -221,6 +224,118 @@ def profile_cases():
         n = int(rng.integers(5, 300))
         cases.append((rng.integers(1, 12, n), rng.integers(2, 800, n), seed))
     return cases
+
+
+# the masked fit cases of tests/test_torch_kmeans_fit.py: (name, B, N, D,
+# options).  They cover the branches of the Lloyd sums' order that the
+# kmeans_fit kernel replays: D = 1 with a batch of one in order (N < 64),
+# in 4 x 8 lanes (512 <= N < 4096) and in 8 lanes; D = 4 across the
+# 256-row block edge; a fully masked batch row; a cluster forced empty
+# (three distinct points for four clusters).
+KMEANS_FIT_CASES = (
+    ("b1_d1_n50", 1, 50, 1, {}), ("b1_d1_n32", 1, 32, 1, {}),
+    ("b1_d1_n777", 1, 777, 1, {}), ("b1_d1_n4000", 1, 4000, 1, {}),
+    ("b2_d4_n512", 2, 512, 4, {}), ("b2_d4_n513", 2, 513, 4, {}),
+    ("b3_d1_n777_dead", 3, 777, 1, {"dead": 2}),
+    ("b3_d4_n512_dead", 3, 512, 4, {"dead": 1}),
+    ("b2_d1_n200_empty", 2, 200, 1, {"empty": True}),
+    ("b1_d1_n64_empty", 1, 64, 1, {"empty": True}),
+    ("b2_d4_n512_empty", 2, 512, 4, {"empty": True}))
+# (name, sizes, iters) of its segmented cases: lattice segments (exact
+# distance ties) that settle at different sweeps, some after the CPU's
+# first 6-sweep pass; the same cut to 8 sweeps, so a segment stops at iters
+KMEANS_SEG_CASES = (("stragglers", [40, 120, 17, 500, 3000, 9], 50),
+                    ("reaches_iters", [40, 120, 17, 500, 3000, 9], 8))
+
+
+def kmeans_fit_inputs(name: str) -> dict:
+    """One masked case of KMEANS_FIT_CASES from its seed: LERN-like rows
+    (L1-normalized small-integer histograms at D > 1, min-max normalized
+    log counts at D = 1), ragged valid counts, zero masked rows, and the
+    key seeds of its batch rows."""
+    _, b, n, d, opt = next(c for c in KMEANS_FIT_CASES if c[0] == name)
+    rng = np.random.default_rng(n + 10 * d + 100 * b)
+    x = np.zeros((b, n, d), np.float32)
+    mask = np.zeros((b, n), bool)
+    for i in range(b):
+        nv = 0 if i == opt.get("dead") else max(8, n - 37 * i)
+        if nv == 0:
+            continue
+        if opt.get("empty"):
+            pts = rng.random((3, d)).astype(np.float32)
+            v = pts[np.arange(nv) % 3]
+        elif d > 1:
+            raw = rng.integers(0, 5, (nv, d)).astype(np.float32)
+            v = raw / np.maximum(raw.sum(1, keepdims=True), 1e-9)
+        else:
+            v = np.log1p(rng.integers(2, 400, (nv, 1))).astype(np.float32)
+            v = (v - v.min()) / max(float(v.max() - v.min()), 1e-9)
+        x[i, :nv] = v
+        mask[i, :nv] = True
+    return {"x": x, "mask": mask, "seeds": [n + i for i in range(b)]}
+
+
+def kmeans_lern_inputs(n: int = 777) -> dict:
+    """One layer's LERN features at capacity ``n`` (a bucket of one):
+    f_ri [n, 4], f_rc [n] int32, the first n_multi rows real."""
+    rng = np.random.default_rng(n)
+    nm = n - 3
+    f_rc = np.zeros(n, np.int32)
+    f_rc[:nm] = rng.integers(2, 400, nm)
+    f_ri = np.zeros((n, 4), np.int32)
+    f_ri[:nm] = rng.integers(0, 5, (nm, 4))
+    return {"f_ri": f_ri, "f_rc": f_rc, "n_multi": nm, "seed": n}
+
+
+def kmeans_seg_inputs(sizes) -> dict:
+    """The flat-segmented layout of lattice rows (tests/test_torch_lern.py's
+    inputs), padded to a 2048 multiple as the LERN fit pads it."""
+    rng = np.random.default_rng(len(sizes))
+    off, total = [], 0
+    for n in sizes:
+        off.append(total)
+        total += -(-n // 8) * 8
+    p = max(-(-total // 2048) * 2048, 8)
+    s = len(sizes)
+    x = np.zeros((p, 4), np.float32)
+    seg = np.full(p, s, np.int32)
+    for i, n in enumerate(sizes):
+        x[off[i]:off[i] + n] = np.round(rng.random((n, 4)) * 6) / 6
+        seg[off[i]:off[i] + n] = i
+    return {"x": x, "seg": seg, "off": np.asarray(off, np.int32),
+            "cnt": np.asarray(sizes, np.int32), "seeds": list(range(s))}
+
+
+def _kmeans_fit_child(out: str) -> None:
+    """The JAX fits of the KMEANS_* cases (use_kernel=False, as
+    tests/test_torch_kmeans.py runs them)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import kmeans as jkm, lern as jlern
+    res = {"masked": {}, "segmented": {}}
+    for name, *_ in KMEANS_FIT_CASES:
+        inp = kmeans_fit_inputs(name)
+        keys = jnp.stack([jax.random.PRNGKey(i) for i in inp["seeds"]])
+        r = jkm.kmeans_fit_batched(jnp.asarray(inp["x"]),
+                                   jnp.asarray(inp["mask"]), keys, k=4,
+                                   use_kernel=False)
+        res["masked"][name] = (np.asarray(r.centers), np.asarray(r.assign))
+    inp = kmeans_lern_inputs()
+    r = jlern._fit_layer(jnp.asarray(inp["f_ri"]), jnp.asarray(inp["f_rc"]),
+                         jnp.int32(inp["n_multi"]),
+                         jax.random.PRNGKey(inp["seed"]), use_kernel=False)
+    res["lern"] = {k: np.asarray(v) for k, v in r.items()}
+    for name, sizes, iters in KMEANS_SEG_CASES:
+        inp = kmeans_seg_inputs(sizes)
+        r = jkm.kmeans_fit_segmented(
+            jnp.asarray(inp["x"]), jnp.asarray(inp["seg"]), inp["off"],
+            inp["cnt"], jnp.stack([jax.random.PRNGKey(i)
+                                   for i in inp["seeds"]]),
+            n_seg=len(sizes), k=4, iters=iters, use_kernel=False)
+        res["segmented"][name] = (np.asarray(r.centers), np.asarray(r.assign),
+                                  int(r.n_iter))
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
 
 
 CLASSIFY_GRID = [(t, g) for t in (1.0, 2.0, 3.5, 8.0, 30.0)
@@ -419,6 +534,8 @@ def _child_main(mode: str, out: str) -> None:
         _serve_child(out)
     elif mode == "lm_golden":
         _lm_golden_child(out)
+    elif mode == "kmeans_fit":
+        _kmeans_fit_child(out)
     elif mode == "sweep_exp":
         from repro import exp
         from repro.core import sweep
