@@ -46,6 +46,16 @@ every f32 call to the CUDA-core one, and times the Hopper kernel beside
 all the Hopper kernel's; phase 3b holds both again at phase 8's largest
 shape.
 
+``ri_histogram`` is one launch of one thread-block cluster
+(``csrc/ri_histogram.cu``).  Phase 2 prints the cluster's size and how many
+such clusters the card holds; phase 3a holds the kernel bitwise (bins and
+counts) against its plain version at the lengths of ``RI_SIZES``, the edge
+values, an all-negative input, three misaligned views and on a side
+stream, and checks with ``torch.profiler`` that a call runs one CUDA
+kernel and nothing else; phase 3b times it at the main path's input four
+ways: the wrapper (CUDA events around a call), the kernel's device time
+(profiler), the same launch of an empty kernel, and ``torch.bucketize``.
+
 The k-means Lloyd fits run in one launch each: ``kmeans_fit`` (the masked
 fit of the bucketed engine and of the serve profile) and
 ``kmeans_fit_segmented`` (the default engine's fit), each followed by one
@@ -213,15 +223,99 @@ class Timed:
         setattr(self.module, self.name, self.fn)
 
 
-def check_ri_histogram(hops, dev, n: int, rng):
+def hold_ri_histogram(hops, ri, what: str, stream=None) -> int:
+    """The kernel (on ``stream`` if given) against the plain version, bins
+    and counts bitwise; returns the largest |difference| (0)."""
     import torch
-    ri = torch.as_tensor(rng.integers(-1, 3000, n), dtype=torch.int32,
-                         device=dev)
-    b1, c1 = hops.histogram(ri)
+    if stream is None:
+        b1, c1 = hops.histogram(ri)
+    else:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            b1, c1 = hops.histogram(ri)
     b2, c2 = hops.histogram_plain(ri)
     torch.cuda.synchronize()
     if not (torch.equal(b1, b2) and torch.equal(c1, c2)):
-        raise AssertionError(f"ri_histogram kernel != plain at N={n}")
+        raise AssertionError(f"ri_histogram kernel != plain at {what}")
+    return max(int((b1 - b2).abs().max()), int((c1 - c2).abs().max()))
+
+
+# phase 3a's random lengths: around the 4-element vectors and the 4096
+# block of the Pallas kernel, the paths' N, and 2^24
+RI_SIZES = (1, 3, 4, 5, 8, 100, 4095, 4096, 4097, 10_000, 299_636, 303_104,
+            2 ** 24)
+# the edges of the bins, the ends of int32 and "no reuse" (-1)
+RI_EDGES = (-2 ** 31, -1, 0, 1, 10, 11, 100, 101, 500, 501, 2 ** 31 - 1)
+
+
+def ri_cases(dev, rng):
+    """Phase 3a's inputs as (what, ri): random intervals in [-1, 3000) at
+    RI_SIZES, an all-negative input, the edge values alone and shuffled
+    1000 times over, and ri[1:], ri[2:], ri[3:] of a 10,001-element ri."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    for n in RI_SIZES:
+        yield f"N={n}", t(rng.integers(-1, 3000, n))
+    yield "all negative, N=10000", t(rng.integers(-2 ** 31, 0, 10_000))
+    yield "the edge values", t(RI_EDGES)
+    yield "the edge values x 1000", t(rng.permutation(np.tile(RI_EDGES,
+                                                              1000)))
+    base = t(rng.integers(-1, 3000, 10_001))
+    for k in (1, 2, 3):
+        if base[k:].data_ptr() % 16 == 0:
+            raise AssertionError(f"ri[{k}:] is 16-byte aligned")
+        yield f"ri[{k}:] of N=10001", base[k:]
+
+
+def device_events(fn, calls: int, tries: int = 5) -> list:
+    """(name, ms) of every device event (kernel, memset, copy) of
+    ``calls`` calls of ``fn``, by ``torch.profiler``, after one call.  The
+    profiler may lose events (on the H100: 1 of 50 kernels reported in one
+    window, 49 of 50 in three windows in a row), so each window opens and
+    closes with a ``torch.cuda._sleep`` kernel as padding (left out of the
+    result), and a window with fewer events than calls is taken again, up
+    to ``tries`` windows; the fullest is returned, and one with more at
+    once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        if len(events) > len(best):
+            best = events
+        if len(events) >= calls:
+            break
+    return best
+
+
+def one_kernel_a_call(events: list, calls: int, kernel: str,
+                      what: str) -> tuple:
+    """Fail if ``calls`` calls ran any device event but ``kernel`` (a
+    memset, a copy, another kernel), more than one ``kernel`` a call, or
+    none; (the median ms of the events, how many the profiler saw)."""
+    other = sorted(set(n for n, _ in events if kernel not in n))
+    if other or not 0 < len(events) <= calls:
+        raise AssertionError(f"{what}: {calls} calls ran {len(events)} device"
+                             f" events, {other or 'all ' + kernel}; want one "
+                             f"{kernel} a call and nothing else")
+    ms = sorted(t for _, t in events)
+    return ms[len(ms) // 2], len(events)
 
 
 def segmented_case(sizes, d, k, rng, dev):
@@ -1127,6 +1221,7 @@ def main() -> int:
             or "Compiling" in ln))
     t_nvcc = time.time() - t0
     from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.ri_histogram import kernel as hkernel
     ptxas = flash_build_report(reports["flash_attention"])
     hgmma = hgmma_counts(_build._target("flash_attention"))
     for d in fops.HEAD_DIMS:
@@ -1140,17 +1235,33 @@ def main() -> int:
             raise AssertionError(f"the Hopper flash kernel at d={d} does not "
                                  f"run both products on the tensor cores: "
                                  f"{hgmma.get(d)}")
-    rng = np.random.default_rng(3)
-    t0 = time.time()
-    check_ri_histogram(hops, dev, 8, rng)       # compiles the Triton kernel
-    log(f"[build] nvcc {t_nvcc:.1f} s, triton ri_histogram "
-        f"{time.time() - t0:.1f} s")
+    size, active = hkernel.cluster()
+    log(f"[build] nvcc {t_nvcc:.1f} s; ri_histogram: one cluster of {size} "
+        f"CTAs x 1024 threads a launch, cudaOccupancyMaxActiveClusters "
+        f"{active}")
+    if active < 1:
+        raise AssertionError(f"a cluster of {size} CTAs does not fit")
 
     # 3a. each kernel against its plain version at the test shapes
-    for n in (8, 100, 4096, 10_000, 299_636):
-        check_ri_histogram(hops, dev, n, rng)
-    log("[ri_histogram] kernel == plain (bitwise) at N = 8, 100, 4096, "
-        "10000, 299636")
+    rng = np.random.default_rng(3)
+    t0 = time.time()
+    cases = 0
+    for what, ri in ri_cases(dev, rng):
+        hold_ri_histogram(hops, ri, what)
+        cases += 1
+    side = torch.cuda.Stream()
+    ri = torch.as_tensor(rng.integers(-1, 3000, 303_104), dtype=torch.int32,
+                         device=dev)
+    hold_ri_histogram(hops, ri, "a side stream", stream=side)
+    _, seen = one_kernel_a_call(device_events(lambda: hops.histogram(ri), 1),
+                                1, "ri_histogram_kernel",
+                                "ri_histogram, one call")
+    log(f"[ri_histogram] kernel == plain (bitwise, bins and counts) on "
+        f"{cases} cases (N = {', '.join(map(str, RI_SIZES))}; all negative;"
+        f" the edge values {list(RI_EDGES)} alone and shuffled x 1000; "
+        f"ri[1:], ri[2:], ri[3:] of N=10001) and on a side stream; one "
+        f"call runs {seen} CUDA kernel and no other device work (profiler); "
+        f"{time.time() - t0:.1f} s")
     rng = np.random.default_rng(11)
     for sizes, d, k in (([13, 8, 29], 4, 4), ([100], 4, 4),
                         ([8, 8, 8, 8], 8, 4), ([5, 300, 11], 4, 6)):
@@ -1255,6 +1366,10 @@ def main() -> int:
     for k, v in launches.items():
         if v <= 0 and k not in ("kmeans_fit", "kmeans_assign"):
             raise AssertionError(f"the main path never launched {k}")
+    if launches["ri_histogram"] != 1:
+        raise AssertionError(f"phase 4 launched ri_histogram "
+                             f"{launches['ri_histogram']} times, want 1 "
+                             f"(one LERN fit)")
     # one segmented LERN fit: one launch for its sweeps, one for its
     # final assignment
     if (launches["kmeans_fit_segmented"], launches["kmeans_assign_segmented"],
@@ -1317,10 +1432,10 @@ def main() -> int:
         f"{wall_sys - llc_s - fit_s:.1f} s")
     # twelve masked fits: one launch each for the sweeps and one for the
     # final assignment
-    if (hist.launches <= 0 or (fit.launches, dense.launches) != (12, 12)
+    if (hist.launches != 1 or (fit.launches, dense.launches) != (12, 12)
             or fit_seg.launches or assign.launches):
         raise AssertionError(f"the exp.run path launched {sys_launches}, "
-                             f"want ri_histogram and 12 kmeans_fit + 12 "
+                             f"want 1 ri_histogram and 12 kmeans_fit + 12 "
                              f"kmeans_assign launches (12 bucketed fits)")
     got = {row["policy"]: row["result"] for row in rs.to_rows()}
     for name, want in system["points"].items():
@@ -1383,12 +1498,12 @@ def main() -> int:
         f"{hist.launches}; accuracy {acc!r} (golden "
         f"{acc_want['accuracy']!r})")
     if ((fit.launches, dense.launches, fit_seg.launches, assign.launches)
-            != (20, 20, 0, 0) or hist.launches <= 0):
+            != (20, 20, 0, 0) or hist.launches != 1):
         raise AssertionError(f"the config7 fit launched kmeans_fit "
                              f"{fit.launches}, kmeans_assign "
                              f"{dense.launches} and ri_histogram "
-                             f"{hist.launches} times; want 20, 20 and more "
-                             f"than 0 (20 bucketed fits)")
+                             f"{hist.launches} times; want 20, 20 and 1 "
+                             f"(20 bucketed fits of one trace)")
     if acc != acc_want["accuracy"] or not acc > 0.7:
         raise AssertionError(f"prediction accuracy {acc} != golden "
                              f"{acc_want['accuracy']} or not > 0.7")
@@ -1491,22 +1606,33 @@ def main() -> int:
     # 3b. the kernels at the shapes the paths handed them
     kernels = []
     (ri,) = cap_h.args
-    b1, c1 = hops.histogram(ri)
-    b2, c2 = hops.histogram_plain(ri)
-    torch.cuda.synchronize()
-    if not (torch.equal(b1, b2) and torch.equal(c1, c2)):
-        raise AssertionError("ri_histogram kernel != plain at the main path")
+    err = hold_ri_histogram(hops, ri, "the main path's input")
     n = ri.shape[0]
     edges = torch.tensor([-1, 10, 100, 500], dtype=torch.int32, device=dev)
     kernels.append(kernel_row(
-        "ri_histogram", "triton",
-        "src/repro_torch/kernels/ri_histogram/kernel.py",
+        "ri_histogram", "cuda", "src/repro_torch/csrc/ri_histogram.cu",
         "src/repro/kernels/ri_histogram/kernel.py:29",
-        launches["ri_histogram"], int((b1 - b2).abs().max()),
+        launches["ri_histogram"], err,
         time_ms(lambda: hops.histogram(ri)),
         time_ms(lambda: hops.histogram_plain(ri)),
         4 * n + 4 * n + 4 * hops.NUM_BINS, 0,
         time_ms(lambda: torch.bucketize(ri, edges)), {"N": n}))
+    floor_ms = time_ms(lambda: hkernel.launch_empty(dev))
+    device_ms, seen = one_kernel_a_call(
+        device_events(lambda: hops.histogram(ri), 50), 50,
+        "ri_histogram_kernel", "ri_histogram at the main path's input")
+    empty_ms, _ = one_kernel_a_call(
+        device_events(lambda: hkernel.launch_empty(dev), 50), 50,
+        "ri_histogram_empty_kernel", "the empty kernel")
+    kr = kernels[-1]
+    log(f"[ri_histogram] at the main path's N = {n}: wrapper "
+        f"{kr['ms']:.5f} ms (CUDA events around a call), kernel device time "
+        f"{device_ms:.5f} ms (profiler, median over 50 calls: {seen} "
+        f"kernels seen, no other device work), empty-kernel launch floor "
+        f"{floor_ms:.5f} ms through ctypes "
+        f"(device {empty_ms:.5f} ms), bucketize {kr['library_ms']:.5f} ms, "
+        f"plain {kr['plain_ms']:.5f} ms, bound {kr['bound_ms']:.6f} ms "
+        f"({kr['bound_by']})")
     x, centers, seg = cap_a.args
     err = check_assign(kops, x, centers, seg, "main path")
     pr, d = x.shape

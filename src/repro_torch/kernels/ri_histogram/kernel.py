@@ -1,51 +1,65 @@
-"""Triton kernel for reuse-interval binning (LERN feature extraction).
-
-Replaces the Pallas TPU kernel ``repro/kernels/ri_histogram/kernel.py::
-ri_histogram``.  One program per ``BLOCK`` elements: a masked load, three
-compares, a masked store of the bins and four block sums written to the
-program's own row of ``partial`` (no atomics, so the counts are
-deterministic).  ``triton`` is imported when the kernel is first compiled,
-never when this module is imported.
-"""
+"""ctypes binding of ``csrc/ri_histogram.cu`` (built by ``kernels._build``
+at first use): the kernel, the same launch of an empty kernel (the floor
+of a call's time) and the cluster's size and fit."""
 from __future__ import annotations
 
-_KERNEL = None
+import ctypes
+
+import torch
+
+from .. import _build
+
+_FNS = {}
 
 
-def _compile():
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ri_histogram_kernel(ri_ptr, bin_ptr, part_ptr, n,
-                            E0: tl.constexpr, E1: tl.constexpr,
-                            E2: tl.constexpr, NUM_BINS: tl.constexpr,
-                            BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        ri = tl.load(ri_ptr + offs, mask=mask, other=-1)
-        b = tl.where(ri <= E0, 0, tl.where(ri <= E1, 1,
-                                           tl.where(ri <= E2, 2, 3)))
-        b = tl.where(ri < 0, -1, b).to(tl.int32)
-        tl.store(bin_ptr + offs, b, mask=mask)
-        for j in tl.static_range(NUM_BINS):
-            tl.store(part_ptr + pid * NUM_BINS + j,
-                     tl.sum((b == j).to(tl.int32), axis=0))
-
-    return triton, ri_histogram_kernel
+def _fn(name: str, n_ptr: int, n_int: int, stream: bool = True):
+    """The C function ``name`` of ``csrc/ri_histogram.cu`` with ``n_ptr``
+    pointer and ``n_int`` int arguments, then a stream if ``stream``."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("ri_histogram"), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p] * stream)
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
-def launch(ri, bins, partial, edges, block: int) -> None:
-    """Enqueue the kernel on the current stream: ``ri``/``bins`` int32
-    ``[N]`` and ``partial`` int32 ``[cdiv(N, block), 4]`` on the card."""
-    global _KERNEL
-    if _KERNEL is None:
-        _KERNEL = _compile()
-    triton, kern = _KERNEL
-    n = ri.shape[0]
-    grid = (triton.cdiv(n, block),)
-    e0, e1, e2 = edges
-    kern[grid](ri, bins, partial, n, E0=e0, E1=e1, E2=e2,
-               NUM_BINS=partial.shape[1], BLOCK=block, num_warps=8)
+def _check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream(index: int) -> int:
+    """The current stream of device ``index`` as a raw ``cudaStream_t``
+    (``torch.cuda.current_stream`` builds a Python object, which costs
+    more host time than the launch itself)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(ri: torch.Tensor, bins: torch.Tensor,
+           counts: torch.Tensor) -> None:
+    """Enqueue the kernel on the current stream: ``ri`` and ``bins`` int32
+    [N], ``counts`` int32 [4] (contiguous, checked by the caller); raise if
+    the launch was refused."""
+    _check("ri_histogram", _fn("ri_histogram", 3, 1)(
+        ri.data_ptr(), bins.data_ptr(), counts.data_ptr(), ri.shape[0],
+        _stream(ri.get_device())))
+
+
+def launch_empty(device) -> None:
+    """Enqueue the empty kernel, launched as ``launch`` launches the
+    kernel, on the current stream of ``device``."""
+    index = torch.device(device).index
+    _check("ri_histogram_empty", _fn("ri_histogram_empty", 0, 0)(_stream(
+        torch.cuda.current_device() if index is None else index)))
+
+
+def cluster() -> tuple:
+    """(CTAs in the launch's cluster, how many such clusters the card holds
+    at once by ``cudaOccupancyMaxActiveClusters``)."""
+    size, active = ctypes.c_int(), ctypes.c_int()
+    _check("cudaOccupancyMaxActiveClusters", _fn(
+        "ri_histogram_cluster", 2, 0, stream=False)(
+        ctypes.addressof(size), ctypes.addressof(active)))
+    return size.value, active.value

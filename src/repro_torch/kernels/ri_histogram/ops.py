@@ -7,18 +7,20 @@ Maps each reuse interval to its F_RI bin ([1,10], (10,100], (100,500],
 
 On the card it is bound by bytes: it reads 4 B and writes 4 B per element
 (at the main path's N of about 3e5, about 2.4 MB, under a microsecond at
-the H100's 3.35 TB/s), so the launch dominates.  The design keeps it to
-one pass and one launch: each program bins one block and writes its four
-block counts to its own row, and the wrapper folds the rows with one
-``sum``; no atomics, so counts are deterministic.
+the H100's 3.35 TB/s), so the launch dominates.  The design keeps a call
+to one launch of ``csrc/ri_histogram.cu``: a single thread-block cluster
+bins the input and folds the four counts through distributed shared
+memory (no atomics, so counts are deterministic; no second kernel, no
+memset).
 """
 from __future__ import annotations
 
 import torch
 
+from . import kernel
+
 BIN_EDGES = (10, 100, 500)
 NUM_BINS = 4
-BLOCK = 4096
 
 
 def histogram_plain(ri: torch.Tensor):
@@ -36,23 +38,27 @@ def histogram(ri: torch.Tensor):
     """ri [N] int32 -> (bins [N] int32, counts [4] int32).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    Triton kernel (``histogram.launches`` counts those launches)."""
-    if ri.device.type == "cpu":
-        return histogram_plain(ri)
-    if ri.device.type != "cuda":
+    kernel (``histogram.launches`` counts those launches) or raises.  The
+    checks and allocations are the call's host cost beside a kernel of a
+    few microseconds, so they are kept to the cheapest forms."""
+    if not ri.is_cuda:
+        if ri.device.type == "cpu":
+            return histogram_plain(ri)
         raise ValueError(f"ri_histogram: unsupported device {ri.device}")
     if ri.dtype != torch.int32 or ri.dim() != 1 or not ri.is_contiguous():
         raise ValueError("ri_histogram: expects a contiguous int32 [N] tensor")
     n = ri.shape[0]
-    if n == 0:
-        raise ValueError("ri_histogram: empty input")
-    from . import kernel
-    bins = torch.empty(n, dtype=torch.int32, device=ri.device)
-    partial = torch.empty(((n + BLOCK - 1) // BLOCK, NUM_BINS),
-                          dtype=torch.int32, device=ri.device)
-    kernel.launch(ri, bins, partial, BIN_EDGES, BLOCK)
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"ri_histogram: N = {n} is outside [1, 2^31)")
+    # bins at ri's offset from a 16-byte boundary (0 for a fresh tensor):
+    # the kernel's 16-byte vectors need both at the same one
+    phase = ri.data_ptr() % 16 // 4
+    bins = torch.empty_like(ri) if phase == 0 else ri.new_empty(
+        phase + n)[phase:]
+    counts = ri.new_empty(NUM_BINS)
+    kernel.launch(ri, bins, counts)
     histogram.launches += 1
-    return bins, partial.sum(0, dtype=torch.int32)
+    return bins, counts
 
 
 histogram.launches = 0

@@ -1,5 +1,6 @@
 """The port stands alone: no module under src/repro_torch/ and not
-chip_smoke.py imports JAX or the JAX package (checked on the syntax tree,
+chip_smoke.py imports JAX or the JAX package, and no port module imports
+Triton, whose kernels the port no longer has (checked on the syntax tree,
 so an import inside a function counts too)."""
 import ast
 import os
@@ -22,25 +23,37 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("path", _sources(),
-                         ids=lambda p: os.path.relpath(p, ROOT))
-def test_no_jax_or_reference_imports(path):
+def _imports(path):
+    """Every module name that ``path`` imports, by statement or by
+    ``import_module`` / ``__import__`` with a constant name."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    bad = []
+    names = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            bad += [a.name for a in node.names if _forbidden(a.name)]
+            names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            if node.module and _forbidden(node.module):
-                bad.append(node.module)
+            names += [node.module] if node.module else []
         elif isinstance(node, ast.Call) and getattr(
                 node.func, "id", getattr(node.func, "attr", "")) in (
                 "import_module", "__import__"):
-            args = [a.value for a in node.args
-                    if isinstance(a, ast.Constant) and isinstance(a.value,
-                                                                  str)]
-            bad += [a for a in args if _forbidden(a)]
+            names += [a.value for a in node.args
+                      if isinstance(a, ast.Constant) and isinstance(a.value,
+                                                                    str)]
+    return names
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _sources()[1:],
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_triton_imports(path):
+    bad = [n for n in _imports(path) if n.split(".")[0] == "triton"]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 

@@ -22,17 +22,54 @@ from repro_torch.kernels.kmeans_assign import ops as tkops
 from repro_torch.kernels.ri_histogram import ops as thops
 
 
-@pytest.mark.parametrize("n", [8, 100, 4096, 10_000])
-def test_ri_histogram_plain_matches_pallas(n):
-    """Bitwise: bins and counts equal the Pallas kernel and the oracle."""
+# the edges of the bins, the ends of int32 and "no reuse" (-1)
+RI_EDGES = [-2 ** 31, -1, 0, 1, 10, 11, 100, 101, 500, 501, 2 ** 31 - 1]
+
+
+def _ri_case(case) -> np.ndarray:
+    """N random intervals in [-1, 3000) for an int ``case``; else the edge
+    values, or 1000 negative intervals down to -2^31."""
     rng = np.random.default_rng(3)
-    ri = rng.integers(-1, 3000, n).astype(np.int32)
+    if case == "edges":
+        return np.array(RI_EDGES, np.int32)
+    if case == "all_negative":
+        return rng.integers(-2 ** 31, 0, 1000).astype(np.int32)
+    return rng.integers(-1, 3000, case).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", [8, 100, 4096, 10_000, "edges",
+                                  "all_negative"])
+def test_ri_histogram_plain_matches_pallas(case):
+    """Bitwise: bins and counts equal the Pallas kernel and the oracle."""
+    ri = _ri_case(case)
     b, c = thops.histogram(torch.as_tensor(ri))
     for jb, jc in (jhops.histogram(jnp.asarray(ri)),
                    jhref.histogram_ref(jnp.asarray(ri))):
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
         np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
     assert b.dtype == torch.int32 and c.dtype == torch.int32
+    if case == "edges":
+        assert b.tolist() == [-1, -1, 0, 0, 0, 1, 1, 2, 2, 3, 3]
+    if case == "all_negative":
+        assert (b == -1).all() and c.tolist() == [0, 0, 0, 0]
+
+
+def test_ri_histogram_rejects_other_devices():
+    """Neither a CPU nor a CUDA tensor: no kernel, no plain version."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        thops.histogram(torch.empty(4, dtype=torch.int32, device="meta"))
+
+
+def test_ri_histogram_source_keeps_nothing_past_its_launch():
+    """One launch: no global atomics, no memset, no second kernel."""
+    with open(os.path.join(_build.CSRC, "ri_histogram.cu")) as f:
+        src = f.read()
+    code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
+    for word in ("atomic", "Memset", "__device__ int", "<<<"):
+        assert word not in code
+    assert code.count("__global__") == 2          # the kernel, the empty one
+    assert code.count("cluster.sync()") == 2
+    assert "map_shared_rank" in code and "__reduce_add_sync" in code
 
 
 def _segmented_case(sizes, d, k):
@@ -127,6 +164,6 @@ def test_cuda_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "NVCC_DEFAULT",
                         os.path.join(str(tmp_path), "no-nvcc"))
     assert _build.sources() == ["flash_attention", "kmeans_assign",
-                                "kmeans_assign_segmented"]
+                                "kmeans_assign_segmented", "ri_histogram"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
