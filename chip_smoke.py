@@ -20,6 +20,18 @@ port's two paths at full size, each with the kernels' launch counts set to
   ``src/repro_torch/golden/config3_moti2_full_system.json`` and the
   paper's orderings, then served again wholly from the cache; phase 7,
   the bucketed engine's LERN prediction accuracy on ``config7``;
+* phases 4f and 6f, the same data point through
+  ``sweep.simulate_group(engine="fused")`` and the same spec through
+  ``exp.run(plan=ExecPlan(engine="fused", fit_engine="bucketed"))`` from
+  an empty cache, held to the same golden files; each super-step of the
+  fused engine runs under ``torch.cuda.set_sync_debug_mode("error")``,
+  and a phase fails if no super-step ran on the card;
+* phase 10, fig. 17's scheduler comparison (``config1``/``moti1`` at the
+  ``full`` preset, ``DDR4_2400_32b2r_frfcfs`` against
+  ``DDR4_2400_32b2r_squash`` at ``deadline_factor=1.0``, ``hydra`` and
+  ``fifo-nb``) on the host and fused engines, held to
+  ``src/repro_torch/golden/config1_sched.json``, with fig. 17's
+  ``sched_dmr_delta`` (the largest |SQUASH - FR-FCFS| dmr) above 0;
 * phase 8, prefill of qwen3-1.7b at full width (28 layers, weights from a
   seeded ``torch.Generator``) through ``make_prefill_step(use_flash=True)``
   at B=1, S=32768 and at B=4, S=4096; the forward is run again with
@@ -67,6 +79,17 @@ shapes, and times them in turns; phase 5b times the paths' fits (config3
 segmented and bucketed, config7 bucketed, the serve profile) through the
 kernels and through the plain fits in turns.
 
+The LLC round loop of an epoch chunk is one launch of ``llc_rounds``
+(``csrc/llc_rounds.cu``, one CTA per lane).  Phase 2 prints its ptxas
+report and where the SHCT tables sit; phase 3d holds it bitwise (state,
+stats, per-core counts) against its plain loop on seeded random epochs:
+chained chunks at 1024 and 2048 sets with six lanes covering every accel
+mode, core bypass, the shared predictor and fig. 18's way masks,
+SHIP_LARGE tables, all-padding rounds, the fused engine's round count and
+a side stream; phases 4, 6, 4f, 6f and 10 count its launches; phase 3b
+holds and times it at phase 4's and phase 6's largest chunks against the
+plain loop, with the bound and the chain floor.
+
 Every phase raises on failure.  Without CUDA, or without the rest of the
 repository, it exits non-zero and prints no result.
 
@@ -77,6 +100,7 @@ numbers and the card's name and power limit; the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -91,6 +115,11 @@ GOLDEN_DIR = os.path.join(ROOT, "src", "repro_torch", "golden")
 GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
 SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
 LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
+SCHED = os.path.join(GOLDEN_DIR, "config1_sched.json")
+# phase walls before the round loop became a kernel (the last two runs of
+# this script before it did, on an NVIDIA H100 80GB HBM3 at 700.00 W;
+# PERF.md section 5)
+WALLS_BEFORE = {"4": "113.9 / 66.7 s", "6": "158.2 / 106.6 s"}
 CONFIG, MIX = "config3", "moti2"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
@@ -723,6 +752,262 @@ def check_fits(kops, masked_args, segmented_args, dev, launches) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the LLC round loop (llc_rounds)
+# ---------------------------------------------------------------------------
+# phase 3d's six lanes: every accel mode, core bypass on and off, the shared
+# predictor, and fig. 18's way masks
+LLC_LANES = (
+    dict(accel_mode=0),
+    dict(accel_mode=1, core_bypass=True),
+    dict(accel_mode=2, core_bypass=True, shared_predictor=True),
+    dict(accel_mode=3, core_way_mask=0x00FF, accel_way_mask=0xFF00),
+    dict(accel_mode=2, core_way_mask=0xFFFF, accel_way_mask=0x0003),
+    dict(accel_mode=1, core_bypass=True, shared_predictor=True,
+         core_way_mask=0x0F0F, accel_way_mask=0xF0F0),
+)
+# rounds of the chained chunks of one case (host buckets and the fused
+# engine's capacities)
+LLC_CHUNKS = (8, 32, 128)
+
+
+def llc_events(rng, n_lanes, rounds, sets, n_tags=40, p0=0.9, decay=0.93):
+    """Random [L, R, S] int32 (line, meta): set s's events are lines
+    s + sets * j (j < n_tags, so sets overflow their 16 ways), present
+    with a probability that decays with the round (as an epoch's rounds
+    thin out); absent events are padding (line -1, meta 0)."""
+    import numpy as np
+    from repro_torch.core import llc
+    shape = (n_lanes, rounds, sets)
+    p = p0 * decay ** np.arange(rounds)[None, :, None]
+    valid = rng.random(shape) < p
+    line = (np.arange(sets)[None, None, :]
+            + sets * rng.integers(0, n_tags, shape)).astype(np.int64)
+    meta = llc.pack_meta(rng.random(shape) < 0.5, rng.random(shape) < 0.3,
+                         rng.random(shape) < 0.5, rng.random(shape) < 0.1,
+                         rng.random(shape) < 0.7, rng.integers(0, 8, shape))
+    return (np.where(valid, line, -1).astype(np.int32),
+            np.where(valid, meta, 0).astype(np.int32))
+
+
+def llc_batch(sets, lanes, dev, ship=None):
+    """(cfg, knobs, fresh stacked states) of a lane batch at ``sets``
+    sets, the lanes' knobs from ``lanes``."""
+    import dataclasses
+    from repro_torch.core import llc
+    base = llc.LLCConfig(size_bytes=sets * 64 * 16)
+    if ship is not None:
+        base = dataclasses.replace(base, ship=ship)
+    cfgs = [dataclasses.replace(base, **kw) for kw in lanes]
+    return (cfgs[0], llc.lane_knobs(cfgs, dev),
+            llc.stack_states(cfgs[0], len(cfgs), dev))
+
+
+def clone_states(states):
+    from repro_torch.core import llc
+    return llc.LLCState(*(x.clone() for x in states))
+
+
+def hold_llc_rounds(rops, cfg, knobs, kst, pst, line, meta, what,
+                    n_rounds=None, stream=None, plain_knobs=None):
+    """One chunk through the kernel (on ``kst``, in place; on ``stream``
+    if given) and through the plain loop (from ``pst``; ``plain_knobs``,
+    the ``llc.LaneKnobs`` form, where ``knobs`` is the kernel's packed
+    tensor): state, stats and per-core counts bitwise.  Returns the two
+    next states."""
+    import torch
+    if stream is None:
+        kst, ks, kp = rops.rounds(cfg, knobs, kst, line, meta, n_rounds)
+    else:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            kst, ks, kp = rops.rounds(cfg, knobs, kst, line, meta, n_rounds)
+        torch.cuda.current_stream().wait_stream(stream)
+    pst, ps, pp = rops.lanes_plain(cfg, knobs if plain_knobs is None
+                                   else plain_knobs, pst, line, meta,
+                                   n_rounds)
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(kst._fields, kst, pst)
+           if not torch.equal(a, b)]
+    bad += [n for n, a, b in (("stats", ks, ps), ("percore", kp, pp))
+            if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"llc_rounds kernel != plain at {what}: {bad}")
+    return kst, pst
+
+
+def check_llc_rounds(rops, dev) -> dict:
+    """Phase 3d: the kernel against its plain version, bitwise, on seeded
+    random epochs: chained chunks at 1024 and 2048 sets with the six lanes
+    of LLC_LANES, SHIP_LARGE tables (device memory), rounds that are all
+    padding, the fused engine's round count (n_rounds), one lane through
+    ``rounds_one``, and a side stream.  Returns the number of chunks held
+    and the cases' names."""
+    import numpy as np
+    import torch
+    from repro_torch.core import llc
+    from repro_torch.core.ship import SHIP_LARGE
+    rng = np.random.default_rng(17)
+    held, cases = 0, []
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    for sets, ship, tag in ((1024, None, "1024 sets"),
+                            (2048, None, "2048 sets"),
+                            (1024, SHIP_LARGE, "1024 sets, SHIP_LARGE")):
+        cfg, knobs, kst = llc_batch(sets, LLC_LANES, dev, ship)
+        pst = clone_states(kst)
+        for r in LLC_CHUNKS:
+            line, meta = llc_events(rng, len(LLC_LANES), r, sets)
+            kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, t(line),
+                                       t(meta), f"{tag}, R={r}")
+            held += 1
+        pad_l = torch.full((len(LLC_LANES), 16, sets), -1, dtype=torch.int32,
+                           device=dev)
+        before = clone_states(kst)
+        kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, pad_l,
+                                   torch.zeros_like(pad_l),
+                                   f"{tag}, all padding")
+        same = all(torch.equal(a, b) for f, a, b in zip(
+            kst._fields, kst, before) if f != "tick")
+        if not same or not torch.equal(kst.tick, before.tick + 16):
+            raise AssertionError(f"llc_rounds: padding rounds changed the "
+                                 f"state at {tag}")
+        line, meta = llc_events(rng, len(LLC_LANES), 64, sets)
+        n_r = t(rng.integers(0, 64, len(LLC_LANES)).astype(np.int32))
+        kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, t(line),
+                                   t(meta), f"{tag}, n_rounds {n_r.tolist()}",
+                                   n_rounds=n_r)
+        line, meta = llc_events(rng, len(LLC_LANES), 32, sets)
+        kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, t(line),
+                                   t(meta), f"{tag}, side stream",
+                                   stream=torch.cuda.Stream())
+        held += 3
+        cases.append(tag)
+    for kw in LLC_LANES:
+        cfg, _, _ = llc_batch(1024, [kw], dev)
+        kst = llc.init_state(cfg, dev)
+        pst = llc.LLCState(*(x.clone() for x in kst))
+        for r in (8, 64):
+            line, meta = llc_events(rng, 1, r, 1024)
+            kst, ks, kp = rops.rounds_one(cfg, kst, t(line[0]), t(meta[0]))
+            pst, ps, pp = rops.epoch_plain(cfg, pst, t(line[0]), t(meta[0]))
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, b) for a, b in zip(kst, pst))
+                    and torch.equal(ks, ps) and torch.equal(kp, pp)):
+                raise AssertionError(f"llc_rounds one lane {kw}, R={r}: "
+                                     f"kernel != plain")
+            held += 1
+    cases.append("one lane x 6 knobs")
+    return {"held": held, "cases": cases}
+
+
+def llc_bound(cfg, n_lanes, rounds, clock_mhz) -> tuple:
+    """(bytes, chain floor in ms) of one chunk: the events read once, the
+    state and both SHCT tables read and written once, stats and per-core
+    counts written; the floor is R dependent rounds, each at least a tag
+    search and an LRU search over the W ways and ~10 more dependent
+    integer operations (hash, SHCT read, selects) at 4 cycles each."""
+    s, w, t = cfg.num_sets, cfg.ways, cfg.ship.entries
+    n_bytes = (2 * 4 * n_lanes * rounds * s
+               + 2 * n_lanes * s * w * (4 * 4 + 1)
+               + 2 * 2 * 4 * n_lanes * t + 4 * n_lanes * (10 + 16 + 1))
+    chain = rounds * (2 * w + 10) * 4 / (clock_mhz * 1e3)
+    return n_bytes, chain
+
+
+class RoundsCapture:
+    """Wraps ``llc_rounds.ops.rounds`` where the port calls it and keeps a
+    copy of the call with the most lane-rounds (state cloned before the
+    launch), the calls and the lane-round count; the wrapper's own launch
+    count is untouched."""
+
+    def __init__(self, rops):
+        self.rops, self.fn = rops, rops.rounds
+        self.args, self.calls, self.rounds, self.size = None, 0, 0, -1
+        rops.rounds = self
+
+    def __call__(self, cfg, knobs, states, line_b, meta_b, n_rounds=None,
+                 **kw):
+        self.calls += 1
+        self.rounds += line_b.shape[1]
+        if line_b.numel() > self.size:
+            self.size = line_b.numel()
+            self.args = (cfg, knobs, clone_states(states), line_b.clone(),
+                         meta_b.clone(),
+                         None if n_rounds is None else n_rounds.clone())
+        return self.fn(cfg, knobs, states, line_b, meta_b, n_rounds, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def restore(self):
+        self.rops.rounds = self.fn
+
+
+class SyncChecked:
+    """Wraps ``fused._superstep`` where ``drive_lanes_fused`` calls it:
+    each super-step's device work runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (an operation that waits
+    for the card raises); ``drive_lanes_fused``'s one read of the overflow
+    flags per super-step comes after the call, outside it."""
+
+    def __init__(self, fused):
+        self.fused, self.fn = fused, fused._superstep
+        self.calls = 0
+        fused._superstep = self
+
+    def __call__(self, *args, **kw):
+        import torch
+        self.calls += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def restore(self):
+        self.fused._superstep = self.fn
+
+
+def time_llc_rounds(rops, rkernel, args, dev, clock) -> dict:
+    """The kernel held bitwise and timed at a path's captured chunk: CUDA
+    events around a wrapper call (``time_ms``), the plain loop and the
+    kernel in turns (wall, synced), the empty launch, bytes and chain
+    floor."""
+    from repro_torch.core import llc
+    cfg, knobs, st, line, meta, n_r = args
+    n_lanes, rounds, sets = line.shape
+    plain_knobs = knobs if isinstance(knobs, llc.LaneKnobs) else \
+        llc.lane_knobs([cfg], dev)
+    if plain_knobs.core_ways.shape[0] != n_lanes:
+        raise AssertionError("llc_rounds capture: knobs of another batch")
+    hold_llc_rounds(rops, cfg, knobs, clone_states(st), clone_states(st),
+                    line, meta, "the path's input", n_rounds=n_r,
+                    plain_knobs=plain_knobs)
+    work = clone_states(st)
+    t = turns({"kernel": lambda: rops.rounds(cfg, knobs, work, line, meta,
+                                             n_r),
+               "plain": lambda: rops.lanes_plain(cfg, plain_knobs, st, line,
+                                                 meta, n_r)}, reps=3)
+    ms = time_ms(lambda: rops.rounds(cfg, knobs, work, line, meta, n_r),
+                 reps=20)
+    floor = time_ms(lambda: rkernel.launch_empty(n_lanes, sets, dev),
+                    reps=20)
+    r_eff = rounds if n_r is None else min(int(n_r.max()), rounds)
+    n_bytes, chain = llc_bound(cfg, n_lanes, r_eff, clock)
+    return {"ms": ms, "turn_ms": t["kernel"], "plain_ms": t["plain"],
+            "empty_ms": floor, "bytes": n_bytes, "chain_ms": chain,
+            "shape": {"L": n_lanes, "R": r_eff, "S": sets, "W": cfg.ways,
+                      "T": cfg.ship.entries}}
+
+
 def close(a: float, b: float) -> bool:
     return abs(a - b) <= RTOL * abs(b)
 
@@ -1181,7 +1466,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN)):
+    if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN,
+                                           SCHED)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -1198,7 +1484,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.kmeans_assign import ops as kops
+    from repro_torch.kernels.llc_rounds import kernel as rkernel
+    from repro_torch.kernels.llc_rounds import ops as rops
     from repro_torch.kernels.ri_histogram import ops as hops
+    from repro_torch.core import fused, sweep
+    from repro_torch.core.ship import SHIP_DEFAULT, SHIP_LARGE
     from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1235,6 +1525,15 @@ def main() -> int:
             raise AssertionError(f"the Hopper flash kernel at d={d} does not "
                                  f"run both products on the tensor cores: "
                                  f"{hgmma.get(d)}")
+    rep = reports.get("llc_rounds", "")
+    entry = rep.split("llc_rounds_kernel", 1)[-1] if rep else ""
+    log(f"[build] llc_rounds kernel: " + (" | ".join(
+        ln.strip() for ln in entry.splitlines()[:4]
+        if "registers" in ln or "spill" in ln or "stack" in ln)
+        or "no report (built before)") + f" | SHCT tables in shared memory:"
+        f" SHIP_DEFAULT ({SHIP_DEFAULT.entries} entries) "
+        f"{rkernel.smem_tables(SHIP_DEFAULT.entries)}, SHIP_LARGE "
+        f"({SHIP_LARGE.entries}) {rkernel.smem_tables(SHIP_LARGE.entries)}")
     size, active = hkernel.cluster()
     log(f"[build] nvcc {t_nvcc:.1f} s; ri_histogram: one cluster of {size} "
         f"CTAs x 1024 threads a launch, cudaOccupancyMaxActiveClusters "
@@ -1315,6 +1614,15 @@ def main() -> int:
         f"{flash_readings(r_layer)}; {time.time() - t0:.1f} s with the "
         f"first launches")
 
+    # 3d. llc_rounds against its plain loop on seeded random epochs
+    t0 = time.time()
+    r3d = check_llc_rounds(rops, dev)
+    log(f"[llc_rounds] 3d: kernel == plain (bitwise: state, stats, per-core"
+        f" counts) on {r3d['held']} chunks: {r3d['cases']}, chained chunks "
+        f"of {LLC_CHUNKS} rounds, the six lanes' knobs {list(LLC_LANES)}, "
+        f"all-padding rounds, n_rounds, a side stream; "
+        f"{time.time() - t0:.1f} s")
+
     # 4. the main path of the first slice: one data point at full size
     golden = json.load(open(GOLDEN))
     p = sim.SimParams(**golden["params"])
@@ -1327,8 +1635,10 @@ def main() -> int:
     cap_fs = Capture(kops, "fit_segmented")
     t_llc = Timed(llc, "simulate_epoch")
     t_lern = Timed(sim, "train_model_batched")
+    cap_r = RoundsCapture(rops)
     hist.launches = assign.launches = fit_seg.launches = 0
     fit.launches = dense.launches = 0
+    rops.rounds.launches = 0
     t_main = time.time()
     t0 = time.time()
     deadline = sim.calibrated_deadline(CONFIG, p, dram, device=dev)
@@ -1355,14 +1665,17 @@ def main() -> int:
     launches = {"ri_histogram": hist.launches,
                 "kmeans_fit_segmented": fit_seg.launches,
                 "kmeans_assign_segmented": assign.launches,
-                "kmeans_fit": fit.launches, "kmeans_assign": dense.launches}
-    for hook in (cap_h, cap_a, cap_fs, t_llc, t_lern):
+                "kmeans_fit": fit.launches, "kmeans_assign": dense.launches,
+                "llc_rounds": rops.rounds.launches}
+    for hook in (cap_h, cap_a, cap_fs, t_llc, t_lern, cap_r):
         hook.restore()
-    log(f"[main] wall {wall_main:.1f} s, launches {launches}; in "
-        f"llc.simulate_epoch {t_llc.seconds:.1f} s ({t_llc.calls} chunks, "
-        f"{t_llc.rounds} rounds, {t_llc.seconds / max(t_llc.rounds, 1) * 1e3:.3f}"
-        f" ms a round, enqueue); in the LERN fit {t_lern.seconds:.2f} s "
-        f"({t_lern.calls} fits); the rest is the host loop and the waits")
+    log(f"[main] wall {wall_main:.1f} s (before the kernel: "
+        f"{WALLS_BEFORE['4']}), launches {launches}; in llc.simulate_epoch "
+        f"{t_llc.seconds:.1f} s ({t_llc.calls} chunks, {t_llc.rounds} rounds, "
+        f"{t_llc.seconds / max(t_llc.rounds, 1) * 1e3:.4f} ms a round, "
+        f"enqueue: one llc_rounds launch a chunk); in the LERN fit "
+        f"{t_lern.seconds:.2f} s ({t_lern.calls} fits); the rest is the host "
+        f"loop and the waits")
     for k, v in launches.items():
         if v <= 0 and k not in ("kmeans_fit", "kmeans_assign"):
             raise AssertionError(f"the main path never launched {k}")
@@ -1386,6 +1699,33 @@ def main() -> int:
     log("[main] orderings hold: hydra.dmr == 0, hydra.ipc > "
         "arp-cs-as-d.ipc, hydra.accel_br > arp-cs-as-d.accel_br")
 
+    # 4f. the same data point through the fused epoch engine
+    names = list(golden["points"])
+    chk = SyncChecked(fused)
+    fused.reset_counts()
+    hist.launches = assign.launches = fit_seg.launches = 0
+    fit.launches = dense.launches = rops.rounds.launches = 0
+    t0 = time.time()
+    res_f = sweep.simulate_group(CONFIG, MIX, [policies.get(n) for n in names],
+                                 p, dram, deadline_cycles=deadline,
+                                 engine="fused", device=dev)
+    torch.cuda.synchronize()
+    wall_4f = time.time() - t0
+    chk.restore()
+    counts_4f = fused.counts()
+    log(f"[fused] phase 4f: {names} through simulate_group(engine='fused') "
+        f"wall {wall_4f:.1f} s (host engine, phase 4: {wall_main:.1f} s); "
+        f"super-steps on the card {counts_4f['supersteps']} (each under "
+        f"set_sync_debug_mode('error'), {chk.calls} calls), escalations "
+        f"{counts_4f['escalations']}, host stretches "
+        f"{counts_4f['host_stretches']} ({counts_4f['host_epochs']} host "
+        f"epochs); llc_rounds launches {rops.rounds.launches}")
+    if counts_4f["supersteps"] == 0 or rops.rounds.launches <= 0:
+        raise AssertionError(f"phase 4f ran no super-step on the card: "
+                             f"{counts_4f}, {rops.rounds.launches} launches")
+    for name, res in zip(names, res_f):
+        check_point(f"fused {name}", res, golden["points"][name])
+
     # 6. the second slice's path: the test_system spec through exp.run
     system = json.load(open(SYSTEM))
     os.environ["REPRO_CACHE"] = cache + "_system"
@@ -1402,8 +1742,10 @@ def main() -> int:
     t_llc = Timed(llc, "simulate_epoch")
     t_fit = [Timed(sim, "train_model_batched"),
              Timed(sim, "train_family_batched")]
+    cap_r6 = RoundsCapture(rops)
     hist.launches = assign.launches = dense.launches = 0
     fit.launches = fit_seg.launches = 0
+    rops.rounds.launches = 0
     t0 = time.time()
     rs = exp.run(spec, plan=plan, device=dev)
     torch.cuda.synchronize()
@@ -1412,14 +1754,18 @@ def main() -> int:
                     "kmeans_fit": fit.launches,
                     "kmeans_assign": dense.launches,
                     "kmeans_fit_segmented": fit_seg.launches,
-                    "kmeans_assign_segmented": assign.launches}
-    for hook in (cap_d, cap_fm, t_lanes, t_llc, *t_fit):
+                    "kmeans_assign_segmented": assign.launches,
+                    "llc_rounds": rops.rounds.launches}
+    for hook in (cap_d, cap_fm, t_lanes, t_llc, *t_fit, cap_r6):
         hook.restore()
+    if sys_launches["llc_rounds"] <= 0:
+        raise AssertionError("phase 6 never launched llc_rounds")
     llc_s = t_lanes.seconds + t_llc.seconds
     fit_s = sum(t.seconds for t in t_fit)
     rounds = t_lanes.rounds + t_llc.rounds
     lane_rounds = t_lanes.lane_rounds + t_llc.lane_rounds
-    log(f"[system] exp.run of {len(spec)} points wall {wall_sys:.1f} s, "
+    log(f"[system] exp.run of {len(spec)} points wall {wall_sys:.1f} s "
+        f"(before the kernel: {WALLS_BEFORE['6']}), "
         f"launches {sys_launches}; LLC round loop {llc_s:.1f} s "
         f"({t_lanes.calls} lane-batched chunks of {t_lanes.rounds} rounds "
         f"and {t_lanes.lane_rounds} lane-rounds, "
@@ -1480,6 +1826,85 @@ def main() -> int:
                              f"cache: {by_source}")
     log(f"[system] second exp.run served from the cache in "
         f"{time.time() - t0:.2f} s: {by_source}")
+
+    # 6f. the test_system spec through exp.run on the fused engine
+    os.environ["REPRO_CACHE"] = cache + "_system_fused"
+    shutil.rmtree(os.environ["REPRO_CACHE"], ignore_errors=True)
+    plan_f = exp.ExecPlan(**dict(system["plan"], engine="fused"))
+    chk = SyncChecked(fused)
+    fused.reset_counts()
+    hist.launches = assign.launches = dense.launches = 0
+    fit.launches = fit_seg.launches = rops.rounds.launches = 0
+    t0 = time.time()
+    rs_f = exp.run(spec, plan=plan_f, device=dev)
+    torch.cuda.synchronize()
+    wall_6f = time.time() - t0
+    chk.restore()
+    counts_6f = fused.counts()
+    log(f"[fused] phase 6f: exp.run of {len(spec)} points with {plan_f} "
+        f"wall {wall_6f:.1f} s (host engine, phase 6: {wall_sys:.1f} s); "
+        f"super-steps on the card {counts_6f['supersteps']} ({chk.calls} "
+        f"calls under set_sync_debug_mode('error')), escalations "
+        f"{counts_6f['escalations']}, host stretches "
+        f"{counts_6f['host_stretches']} ({counts_6f['host_epochs']} host "
+        f"epochs); launches llc_rounds {rops.rounds.launches}, kmeans_fit "
+        f"{fit.launches}, kmeans_assign {dense.launches}, ri_histogram "
+        f"{hist.launches}")
+    if counts_6f["supersteps"] == 0 or rops.rounds.launches <= 0:
+        raise AssertionError(f"phase 6f ran no super-step on the card: "
+                             f"{counts_6f}")
+    got_f = {row["policy"]: row["result"] for row in rs_f.to_rows()}
+    for name, want in system["points"].items():
+        compare(json.loads(json.dumps(system_point(got_f[name]))), want,
+                f"system fused.{name}")
+    log(f"[fused] phase 6f: all {len(got_f)} points match the golden")
+
+    # 10. fig. 17's scheduler comparison on the scheduled DRAM backend
+    sched = json.load(open(SCHED))
+    os.environ["REPRO_CACHE"] = cache + "_sched"
+    shutil.rmtree(os.environ["REPRO_CACHE"], ignore_errors=True)
+    if dataclasses.asdict(exp.PARAMS.get(sched["preset"])) != \
+            sched["params"]:
+        raise AssertionError("the sched golden's preset differs")
+    spec10 = exp.ExperimentSpec.grid(
+        config=sched["config"], mix=sched["mix"],
+        policy=list(sched["policies"]), params=sched["preset"],
+        dram=list(sched["drams"]), deadline_factor=sched["deadline_factor"])
+    fr, sq = sched["drams"]
+    for engine in sched["engines"]:
+        chk = SyncChecked(fused) if engine == "fused" else None
+        fused.reset_counts()
+        rops.rounds.launches = 0
+        t0 = time.time()
+        rs10 = exp.run(spec10, plan=exp.ExecPlan(engine=engine, cache=False),
+                       device=dev)
+        torch.cuda.synchronize()
+        wall10 = time.time() - t0
+        if chk is not None:
+            chk.restore()
+        pts = {}
+        for row in rs10.to_rows():
+            pts.setdefault(row["policy"], {})[row["dram"]] = system_point(
+                row["result"])
+        compare(json.loads(json.dumps(pts)), sched["points"][engine],
+                f"sched.{engine}")
+        c10 = fused.counts()
+        delta = {pol: pts[pol][sq]["summary"]["dmr"]
+                 - pts[pol][fr]["summary"]["dmr"] for pol in pts}
+        gap = max(abs(v) for v in delta.values())
+        log(f"[sched] phase 10 {engine}: {sched['config']}/{sched['mix']} "
+            f"{sched['preset']}, {fr} vs {sq}, deadline_factor "
+            f"{sched['deadline_factor']}: {len(spec10)} points match the "
+            f"golden, wall {wall10:.1f} s, llc_rounds launches "
+            f"{rops.rounds.launches}, super-steps {c10['supersteps']}; "
+            f"SQUASH - FR-FCFS dmr {delta}, sched_dmr_delta {gap!r}")
+        if rops.rounds.launches <= 0 or (engine == "fused"
+                                         and c10["supersteps"] == 0):
+            raise AssertionError(f"phase 10 {engine}: launches "
+                                 f"{rops.rounds.launches}, {c10}")
+        if not gap > 0:
+            raise AssertionError(f"phase 10 {engine}: sched_dmr_delta {gap}"
+                                 f" is not above 0")
 
     # 7. LERN prediction accuracy on config7 under the bucketed engine
     acc_want = system["lern_accuracy"]
@@ -1658,6 +2083,22 @@ def main() -> int:
         time_ms(lambda: kops.assign_plain(x, centers)),
         x.element_size() * (b * nd * d + b * k * d) + 4 * b * nd,
         b * nd * k * (2 * d + 2), None, {"B": b, "N": nd, "D": d, "K": k}))
+    clock = sm_clock_mhz()
+    r4 = time_llc_rounds(rops, rkernel, cap_r.args, dev, clock)
+    r6 = time_llc_rounds(rops, rkernel, cap_r6.args, dev, clock)
+    kernels.append(kernel_row(
+        "llc_rounds", "cuda", "src/repro_torch/csrc/llc_rounds.cu",
+        "src/repro/core/llc.py:213", launches["llc_rounds"], 0, r4["ms"],
+        r4["plain_ms"], r4["bytes"], 0, None, r4["shape"]))
+    for where, r, calls in (("phase 4", r4, cap_r), ("phase 6", r6, cap_r6)):
+        log(f"[llc_rounds] at {where}'s largest chunk {r['shape']} (of "
+            f"{calls.calls} calls, {calls.rounds} rounds): kernel == plain "
+            f"bitwise; wrapper {r['ms']:.4f} ms (CUDA events), in turns "
+            f"kernel {r['turn_ms']:.4f} ms vs plain loop {r['plain_ms']:.2f}"
+            f" ms (wall, synced), empty launch {r['empty_ms']:.4f} ms; bound "
+            f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes), chain "
+            f"floor {r['chain_ms']:.5f} ms ({r['shape']['R']} rounds at "
+            f"{clock:.0f} MHz); none in the library")
     kernels += check_fits(kops, cap_fm.args, cap_fs.args, dev, {
         "kmeans_fit": sys_launches["kmeans_fit"],
         "kmeans_fit_segmented": launches["kmeans_fit_segmented"]})

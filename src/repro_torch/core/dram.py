@@ -6,9 +6,14 @@ under utilization rho follows an M/D/1-shaped law, capped for stability.
 The LPDDR5 model reflects its 32B bursts (2 accesses / 64B line -> lower
 effective line rate, higher effective latency) per §VI-H3.
 
-Pure Python, a copy of the JAX package's fluid models.  The scheduled
-bank/rank backend (``SchedDramModel`` there) is not ported yet; asking for
-it raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 9).
+Scheduled models (:class:`SchedDramModel`) add a bank/rank timing backend
+(row-buffer hit/miss/conflict costs, per-bank queue backlog, rank bus
+contention, FR-FCFS vs SQUASH-style deadline-urgency arbitration) evaluated
+by ``core/dramsched.py``.  The fluid fields double as the rate/latency
+envelope (caps, LLC-side utilization), so a scheduled model drops into every
+fluid call site unchanged.
+
+Pure Python, a copy of the JAX package's models.
 """
 from __future__ import annotations
 
@@ -63,6 +68,32 @@ class DramModel:
                                        QUEUE_TRAFFIC_FLOOR), 1.0)
 
 
+@dataclasses.dataclass(frozen=True)
+class SchedDramModel(DramModel):
+    """Bank/rank scheduled timing model (FR-FCFS or SQUASH-style).
+
+    Geometry (``banks``/``ranks``/``samples``/``col_bits``) fixes the shapes
+    of the per-lane bank state; the cycle costs and the ``scheduler`` kind
+    are data (``dramsched.timing_tuple``).  Cycle costs are integers in
+    system cycles (``core/dramsched.py`` holds the update rule)."""
+    scheduler: str = "frfcfs"   # "frfcfs" | "squash"
+    banks: int = 16             # total banks (power of two)
+    ranks: int = 2              # banks are split evenly across ranks
+    samples: int = 32           # address samples per epoch (fixed shape)
+    col_bits: int = 2           # line-address bits below the bank field
+    t_cas: int = 12             # row-hit access (CAS) cost, cycles
+    t_rcd: int = 12             # activate (RAS-to-CAS) cost, cycles
+    t_rp: int = 12              # precharge cost on a row conflict, cycles
+    t_bus: int = 4              # per-line rank bus occupancy, cycles
+    reset_period: int = 8       # epochs between row-table resets
+    queue_cap: int = 4096       # per-bank backlog clamp, cycles
+
+    def __post_init__(self):
+        assert self.banks > 0 and self.banks & (self.banks - 1) == 0
+        assert self.ranks > 0 and self.banks % self.ranks == 0
+        assert self.scheduler in ("frfcfs", "squash"), self.scheduler
+
+
 # 2 GHz system clock.  DDR3-1600 single channel 64-bit: 12.8 GB/s peak
 # = 0.1 lines/cycle;  DDR4-2400: 19.2 GB/s = 0.15;  LPDDR5-5500 x16:
 # 11 GB/s with 32B bursts -> ~0.086 lines/cycle but two bursts per line.
@@ -73,36 +104,46 @@ DDR4_2400 = DramModel("DDR4_2400_8x8", latency_cycles=90.0,
 LPDDR5_5500 = DramModel("LPDDR5_5500_1x16_BG_BL16", latency_cycles=130.0,
                         peak_lines_per_cycle=0.086, efficiency=0.80)
 
-MODELS = {m.name: m for m in (DDR3_1600, DDR4_2400, LPDDR5_5500)}
 
-# The JAX package's scheduled bank/rank backends (``SchedDramModel``) are
-# not ported yet: ROADMAP.md Queue 1 item 9.
-SCHED_MODEL_NAMES = ("DDR3_1600_8b1r_squash", "DDR4_2400_32b2r_frfcfs",
-                     "DDR4_2400_32b2r_squash")
+# Scheduled variants: the fluid envelope of the base part plus bank/rank
+# timing.  DDR3 cycle costs in 2 GHz system cycles are ~1.25x the DDR4 ones;
+# its 8-bank single-rank geometry saturates the wait cap, while the 32-bank
+# dual-rank DDR4 parts keep per-bank waits under it, so FR-FCFS and SQUASH
+# arbitration separate (fig. 17).
+DDR3_1600_SQUASH = SchedDramModel(
+    "DDR3_1600_8b1r_squash", latency_cycles=100.0,
+    peak_lines_per_cycle=0.100, efficiency=0.70, scheduler="squash",
+    banks=8, ranks=1, t_cas=15, t_rcd=15, t_rp=15, t_bus=5)
+DDR4_2400_FRFCFS = SchedDramModel(
+    "DDR4_2400_32b2r_frfcfs", latency_cycles=90.0,
+    peak_lines_per_cycle=0.150, efficiency=0.70, scheduler="frfcfs",
+    banks=32, ranks=2)
+DDR4_2400_SQUASH = SchedDramModel(
+    "DDR4_2400_32b2r_squash", latency_cycles=90.0,
+    peak_lines_per_cycle=0.150, efficiency=0.70, scheduler="squash",
+    banks=32, ranks=2)
+
+MODELS = {m.name: m for m in (DDR3_1600, DDR4_2400, LPDDR5_5500,
+                              DDR3_1600_SQUASH, DDR4_2400_FRFCFS,
+                              DDR4_2400_SQUASH)}
 
 
 def dram_kind(model: DramModel) -> str:
-    """Artifact tag for the model family: ``fluid`` (the JAX package tags
-    its scheduled models ``sched:<policy>``; asking for one raises until
-    that backend is ported)."""
-    if model.name in SCHED_MODEL_NAMES:
-        raise NotImplementedError(
-            f"{model.name!r}: the scheduled DRAM backend is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
+    """Artifact tag for the model family: ``fluid`` or ``sched:<policy>``."""
+    if isinstance(model, SchedDramModel):
+        return f"sched:{model.scheduler}"
     return "fluid"
 
 
 def default_model() -> DramModel:
     """Default DRAM model for call sites that don't pin one.
 
-    ``REPRO_DRAM`` overrides it: empty/``fluid`` -> DDR3-1600 fluid, a
-    fluid model's name -> that model; ``sched`` or a scheduled model's name
-    raises until that backend is ported."""
+    ``REPRO_DRAM`` overrides it: empty/``fluid`` -> DDR3-1600 fluid,
+    ``sched`` -> the DDR3-1600 SQUASH backend, anything else is looked up in
+    ``MODELS`` by name."""
     name = os.environ.get("REPRO_DRAM", "").strip()
     if name in ("", "fluid"):
         return DDR3_1600
-    if name == "sched" or name in SCHED_MODEL_NAMES:
-        raise NotImplementedError(
-            f"REPRO_DRAM={name!r}: the scheduled DRAM backend is not ported "
-            "yet (ROADMAP.md Queue 1 item 9)")
+    if name == "sched":
+        return DDR3_1600_SQUASH
     return MODELS[name]

@@ -4,10 +4,11 @@ Cache content only couples accesses that map to the *same set*, so the
 epoch's event stream is regrouped into "rounds" -- round r holds the r-th
 access of every set -- and one dense, vectorized transition advances the
 whole [S, W] state per round (gather/compare/one-hot select), instead of a
-serial per-event loop.  ``simulate_epoch`` runs the rounds as a Python loop
-of torch ops on the state's device; ``simulate_epoch_lanes`` runs several
-policy lanes through one such loop, the lane axis a dimension of every
-op.  Exactness: per-set event order is
+serial per-event loop.  ``simulate_epoch`` runs the rounds of one lane's
+chunk and ``simulate_epoch_lanes`` those of several policy lanes (the lane
+axis a dimension of every op) through ``kernels.llc_rounds``: one kernel
+launch a chunk on the card, a Python loop of ``round_transition`` on the
+CPU.  Exactness: per-set event order is
 preserved, so hits/misses/LRU/occupancy are exact.  The only relaxation is
 that global SHIP counter updates within one round are applied as a batch;
 ``ref_simulate`` (the serial oracle) pins the exact semantics on
@@ -389,45 +390,54 @@ def round_transition(cfg: LLCConfig, knobs: LaneKnobs, sampler_j,
             (shct_core, shct_accel), masks, core_hit, core_miss, src)
 
 
+def round_step(cfg: LLCConfig, knobs: LaneKnobs, sampler_j, rows, shct,
+               line, meta, tick, cols=None):
+    """One round of ``round_transition`` on a lane batch's full [L, S, W]
+    state (the counterpart of the JAX ``llc.round_step_fn``), or, with
+    ``cols`` (int64 [C] set indices), on those columns only: their rows
+    are gathered, advanced and written back.  Every other column's event
+    must be padding (meta 0): a no-op, so the result is bitwise the
+    full-width round's, as the JAX fused engine's prefix slices are.
+    ``line``/``meta`` are [L, S]; ``tick`` broadcasts against [L, S, W].
+    Returns ``round_transition``'s tuple, its per-set outputs over the
+    columns it ran."""
+    if cols is None:
+        return round_transition(cfg, knobs, sampler_j, rows, shct, line,
+                                meta, tick)
+    sub = tuple(x.index_select(1, cols) for x in rows)
+    new_sub, shct, masks, ch, cm, src = round_transition(
+        cfg, knobs, sampler_j[cols], sub, shct, line.index_select(1, cols),
+        meta.index_select(1, cols), tick)
+    new_rows = tuple(x.index_copy(1, cols, y) for x, y in zip(rows, new_sub))
+    return new_rows, shct, masks, ch, cm, src
+
+
 def simulate_epoch(cfg: LLCConfig, state: LLCState, line_m, meta_m,
                    device="cuda"
                    ) -> Tuple[LLCState, torch.Tensor, torch.Tensor]:
     """Run one chunk of an epoch (round-major [R, S] int32 event matrices)
     through the LLC on ``device``, where ``state`` lives: R rounds of
-    ``round_transition``.
+    ``round_transition``, through ``kernels.llc_rounds`` (one kernel
+    launch on the card, updating ``state`` in place; the plain loop on the
+    CPU).
 
     Returns (state, stats[len(STAT_NAMES)] int32, percore[NUM_CORES, 2]
-    (hits, misses) int32), all on the state's device.  The loop enqueues
-    work only; nothing here waits for the device."""
+    (hits, misses) int32), all on the state's device.  Nothing here waits
+    for the device."""
+    from ..kernels.llc_rounds import ops  # deferred: ops imports this module
     dev = _device.resolve(device)
     if state.tags.device.type != dev.type:
         raise ValueError(f"LLC state is on {state.tags.device}, not {dev}")
-    line_m = torch.as_tensor(line_m, device=dev)
-    meta_m = torch.as_tensor(meta_m, device=dev)
-    knobs = _const_knobs(cfg, dev)
-    sampler_j = _sampler(cfg, dev)
-    s = cfg.num_sets
-    rows = (state.tags, state.lru, state.owner, state.sig, state.reused)
-    shct = (state.shct_core, state.shct_accel)
-    counts = torch.zeros((len(STAT_NAMES), s), dtype=torch.int32,
-                         device=dev)
-    percore = torch.zeros((NUM_CORES, 2), dtype=torch.int32, device=dev)
-    tick = state.tick
-    for r in range(line_m.shape[0]):
-        tick = tick + 1
-        rows, shct, masks, ch, cm, src = round_transition(
-            cfg, knobs, sampler_j, rows, shct, line_m[r], meta_m[r], tick)
-        counts += masks
-        percore.index_add_(0, src, torch.stack([ch, cm], 1).to(torch.int32))
-    stats = counts.sum(1, dtype=torch.int32)
-    return LLCState(*rows, tick, *shct), stats, percore
+    return ops.rounds_one(cfg, state, torch.as_tensor(line_m, device=dev),
+                          torch.as_tensor(meta_m, device=dev))
 
 
 def simulate_epoch_lanes(cfg: LLCConfig, knobs: LaneKnobs, states: LLCState,
                          line_b, meta_b, device="cuda"
                          ) -> Tuple[LLCState, torch.Tensor, torch.Tensor]:
     """Lane-batched epoch chunk: L policies advance through one round
-    loop whose every op carries the lane axis.
+    loop (one kernel launch on the card) whose every op carries the lane
+    axis.
 
     ``cfg`` supplies the shared geometry (any lane's config: the caller
     guarantees ``geometry_key`` agreement); ``knobs`` (``lane_knobs``) and
@@ -436,34 +446,13 @@ def simulate_epoch_lanes(cfg: LLCConfig, knobs: LaneKnobs, states: LLCState,
     (line -1, meta 0): no-ops for its cache content.  Returns (states,
     stats [L, len(STAT_NAMES)] int32, percore [L, NUM_CORES, 2] int32) on
     the states' device, enqueued only."""
+    from ..kernels.llc_rounds import ops  # deferred: ops imports this module
     dev = _device.resolve(device)
     if states.tags.device.type != dev.type:
         raise ValueError(f"LLC states are on {states.tags.device}, "
                          f"not {dev}")
-    line_b = torch.as_tensor(line_b, device=dev)
-    meta_b = torch.as_tensor(meta_b, device=dev)
-    n_lanes, s = line_b.shape[0], cfg.num_sets
-    sampler_j = _sampler(cfg, dev)
-    rows = (states.tags, states.lru, states.owner, states.sig, states.reused)
-    shct = (states.shct_core, states.shct_accel)
-    counts = torch.zeros((len(STAT_NAMES), n_lanes, s), dtype=torch.int32,
-                         device=dev)
-    percore = torch.zeros((n_lanes * NUM_CORES, 2), dtype=torch.int32,
-                          device=dev)
-    core_offs = torch.arange(n_lanes, device=dev)[:, None] * NUM_CORES
-    tick = states.tick
-    for r in range(line_b.shape[1]):
-        tick = tick + 1
-        rows, shct, masks, ch, cm, src = round_transition(
-            cfg, knobs, sampler_j, rows, shct, line_b[:, r], meta_b[:, r],
-            tick[:, None, None])
-        counts += masks
-        percore.index_add_(0, (src + core_offs).reshape(-1),
-                           torch.stack([ch, cm], -1).reshape(-1, 2).to(
-                               torch.int32))
-    stats = counts.sum(2, dtype=torch.int32).T
-    return (LLCState(*rows, tick, *shct), stats,
-            percore.reshape(n_lanes, NUM_CORES, 2))
+    return ops.rounds(cfg, knobs, states, torch.as_tensor(line_b, device=dev),
+                      torch.as_tensor(meta_b, device=dev))
 
 
 def occupancy(state: LLCState) -> Tuple[int, int]:

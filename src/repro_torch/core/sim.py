@@ -35,11 +35,12 @@ import numpy as np
 
 from .. import device as _device
 from . import cores as cores_mod
+from . import dramsched
 from . import lern as lern_mod
 from . import llc as llc_mod
 from . import lrpt as lrpt_mod
 from .apm import APMState, bypass_mask
-from .dram import DDR3_1600, DramModel
+from .dram import DDR3_1600, DramModel, SchedDramModel
 from .lern import LernModel, train_family_batched, train_model_batched
 from .llc import A_HINT, A_RAND, HW_SCALE, LLCConfig, build_rounds, pack_meta
 from .lrpt import lrpt_train_hash
@@ -571,6 +572,11 @@ class Lane:
         self._n_a = 0
         self._shed_core = np.ones(self.n_cores)
         self._accel_prio = False
+        # scheduled DRAM backend: per-lane bank state (host twin of the
+        # fused carry's bank-state block; core/dramsched.py)
+        self.dsched = (dramsched.host_init(dram)
+                       if isinstance(dram, SchedDramModel) else None)
+        self._et_i = int(p.epoch_cycles)
 
     @property
     def active(self) -> bool:
@@ -759,15 +765,34 @@ class Lane:
         else:
             w_llc_a = w_llc_c = min(_mg1_delay(rho_llc, s_llc),
                                     p.w_cap * s_llc)
-        # fluid M/G/1 DRAM waits
-        w_dram_fifo = min(dram.queue_delay(dram_traffic, et), w_cap_dram)
-        if accel_prio:
-            rho_a_dram = dram.utilization(am, et)
-            w_dram_a = min(dram.queue_delay(am, et), w_cap_dram)
-            prio_d = min(1.0 / max(1.0 - rho_a_dram, 1e-3), p.prio_cap)
-            w_dram_c = min(w_dram_fifo * prio_d, w_cap_dram * p.prio_cap)
+        if self.dsched is None:
+            # fluid M/G/1 DRAM waits (LLC-side waits above are fluid in
+            # both backends)
+            w_dram_fifo = min(dram.queue_delay(dram_traffic, et),
+                              w_cap_dram)
+            if accel_prio:
+                rho_a_dram = dram.utilization(am, et)
+                w_dram_a = min(dram.queue_delay(am, et), w_cap_dram)
+                prio_d = min(1.0 / max(1.0 - rho_a_dram, 1e-3), p.prio_cap)
+                w_dram_c = min(w_dram_fifo * prio_d,
+                               w_cap_dram * p.prio_cap)
+            else:
+                w_dram_a = w_dram_c = w_dram_fifo
         else:
-            w_dram_a = w_dram_c = w_dram_fifo
+            # scheduled (bank/rank) DRAM backend, the host twin of the
+            # fused engine's in-carry bank model.  SQUASH urgency: explicit
+            # accel priority, or a hydra lane predicting it will miss this
+            # epoch's requirement (amal is still pre-update here).
+            ma_hat = p.mlp_accel * et / max(self.amal, 1.0)
+            urgent = accel_prio or (self.policy.hydra
+                                    and ma_hat < self.hist["requirement"][-1])
+            samp = dramsched.sample_window(self.tr.line, self.pos, n_a,
+                                           dram.samples)
+            w_a, w_c = dramsched.host_epoch(
+                self.dsched, dram, samp, am, cm, st["prefetch_fills"],
+                urgent, self.epoch, self._et_i)
+            w_dram_a = min(w_a, w_cap_dram)
+            w_dram_c = min(w_c, w_cap_dram * p.prio_cap)
         miss_lat_c = p.llc_hit_lat + w_llc_c + dram.latency_cycles + w_dram_c
         miss_lat_a = p.llc_hit_lat + w_llc_a + dram.latency_cycles + w_dram_a
         self.cm_prev, self.pf_prev = float(cm), float(st["prefetch_fills"])

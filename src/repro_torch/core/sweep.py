@@ -16,10 +16,13 @@ x DRAM/LLC variants -- and this module batches it at two levels:
   duplicate points are computed once, and finished groups are written
   back with atomic renames.
 
-Not ported yet (ROADMAP.md Queue 1): the fused device-resident epoch
-engine and the geometry-bucketed whole-sweep engine (item 10), and the
-spawn process pool with its retry, respawn and watchdog (item 11).
-Asking for them raises ``NotImplementedError``.
+``engine="fused"`` drives each geometry batch through the device-resident
+epoch engine (``core/fused.py``): integer stats bitwise, floats within
+rtol 1e-6 of the host loop, so the engine is a speed switch.
+
+Not ported yet (ROADMAP.md Queue 1): the geometry-bucketed whole-sweep
+engine (item 10b) and the spawn process pool with its retry, respawn and
+watchdog (item 11).  Asking for them raises ``NotImplementedError``.
 
 Every entry point takes ``device=`` (default: the card) for the LLC
 state and the LERN fits.
@@ -49,7 +52,7 @@ MAX_LANES = 4
 TASK_RETRIES = int(os.environ.get("REPRO_TASK_RETRIES", "2"))
 RETRY_BACKOFF = float(os.environ.get("REPRO_RETRY_BACKOFF", "0.25"))
 
-_ENGINES = ("auto", "host")
+_ENGINES = ("auto", "host", "fused")
 
 
 def _faults():
@@ -59,10 +62,11 @@ def _faults():
 
 
 def _check_engine(engine: str) -> None:
-    if engine in ("fused", "bucketed"):
+    if engine == "bucketed":
         raise NotImplementedError(
-            f"engine={engine!r}: the device-resident epoch engines are not "
-            "ported yet (ROADMAP.md Queue 1 item 10); use engine='host'")
+            "engine='bucketed': the geometry-bucketed whole-sweep engine is "
+            "not ported yet (ROADMAP.md Queue 1 item 10b); use "
+            "engine='fused' or 'host'")
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
 
@@ -103,7 +107,10 @@ def simulate_group(config: str, mix: str, pols: Sequence[Policy],
     """Simulate several policies on one (config, mix) trace in one pass
     on ``device``; results in ``pols`` order, each bitwise the sequential
     ``sim.drive_lane`` of that policy alone.  ``engine`` is ``"host"``
-    (``"auto"`` means the same until the fused engine is ported)."""
+    (the lane-batched per-epoch host loop), ``"fused"`` (the device-resident
+    super-step engine, ``core/fused.py``) or ``"auto"`` (the fused engine
+    for every eligible geometry batch; ``REPRO_FUSED=0`` pins it to the
+    host loop)."""
     _check_engine(engine)
     dev = _device.resolve(device)
     p = params or sim.SimParams()
@@ -120,8 +127,30 @@ def simulate_group(config: str, mix: str, pols: Sequence[Policy],
     for lane in lanes:
         batches.setdefault(llc.geometry_key(lane.llc_cfg), []).append(lane)
     for batch in batches.values():
-        _drive_lanes(batch, dev)
+        if _use_fused(batch, engine):
+            from . import fused
+            fused.drive_lanes_fused(batch)
+        else:
+            _drive_lanes(batch, dev)
     return [lane.result() for lane in lanes]
+
+
+def _use_fused(batch: List[sim.Lane], engine: str) -> bool:
+    """Whether a geometry batch runs on the fused engine: ``"fused"``
+    demands it (and raises for a batch it cannot take), ``"auto"`` takes
+    it for an eligible batch unless ``REPRO_FUSED=0``, ``"host"`` never.
+    (``exp.ExecPlan`` resolves ``"auto"`` to ``"host"`` before it gets
+    here until the bucketed engine is ported.)"""
+    if engine == "host":
+        return False
+    if engine == "auto" and os.environ.get("REPRO_FUSED", "1") == "0":
+        return False
+    from . import fused
+    eligible = all(fused.lane_supported(lane) for lane in batch)
+    if engine == "fused" and not eligible:
+        raise ValueError("engine='fused' requested for a lane batch "
+                         "the fused engine does not support")
+    return eligible
 
 
 def _drive_lanes(lanes: List[sim.Lane], dev: torch.device) -> None:

@@ -18,8 +18,10 @@ in the shared cross-process ``state`` marker directory that makes
 ``max_fires`` a *global* budget, not per-process — and exports it to
 the environment for the duration.
 
-Sites instrumented in the port (the JAX package also has the bucketed,
-fused and serve sites; those engines are not ported yet):
+Sites instrumented in the port (the JAX package also has the bucketed
+engine's ``bucket``, ``fused``, ``bucket_overflow`` and ``stage_evict``
+sites and the serve sites; they come with the bucketed engine and the
+serve replay, ROADMAP.md Queue 1 items 10b and 12):
 
 ==================  =====================================================
 ``task``            inside ``sweep._group_task`` (inline group tasks)

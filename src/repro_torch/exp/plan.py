@@ -10,14 +10,17 @@ Fields left ``None`` resolve to the environment defaults, so
 
 Engine names (the JAX package's set):
 
-* ``"auto"``    -- resolves to ``"host"`` in the port until the
-  device-resident engines land (ROADMAP.md Queue 1 item 10).  The JAX
-  package's own contract (tests/test_bucketed.py, tests/test_fused.py)
-  makes its engines bitwise equal, so this changes speed, not results.
+* ``"auto"``    -- resolves to ``"host"`` in the port until the bucketed
+  whole-sweep engine lands (ROADMAP.md Queue 1 item 10b); then it moves to
+  the JAX package's default, ``"bucketed"``.  The JAX package's own
+  contract (tests/test_bucketed.py, tests/test_fused.py) makes its engines
+  bitwise equal, so this changes speed, not results.
 * ``"host"``    -- the lane-batched per-epoch host loop
   (``sweep.simulate_group``).
-* ``"fused"`` / ``"bucketed"`` -- not ported yet; a run asking for them
-  raises ``NotImplementedError``.
+* ``"fused"``   -- the device-resident super-step engine
+  (``core/fused.py``) for each group.
+* ``"bucketed"`` -- not ported yet; a run asking for it raises
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ class ExecPlan:
 
     engine:     "auto" | "host" | "fused" | "bucketed" (default: env
                 ``REPRO_ENGINE``; legacy ``REPRO_FUSED=0`` means "host";
-                else "auto", which resolves to "host")
+                else "auto", which resolves to "host" until item 10b)
     jobs:       process-pool width (default 1; > 1 is not ported yet)
     cache:      read/write the sim disk result cache (default True)
     fit_engine: "auto" | "bucketed" | "segmented" k-means fit engine

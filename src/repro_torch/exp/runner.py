@@ -2,11 +2,11 @@
 public entry point for evaluating anything on the port.
 
 Points go through ``sweep.map_points`` (lane-batched ``simulate_group`` +
-disk-cache dedup) on the host engine; with the cache off, through
-``simulate_group`` per (config, mix, params, dram) group.  The JAX
-package's device-resident engines (``fused``, ``bucketed``) and its
-process pool (``jobs > 1``) are not ported yet: asking for them raises
-``NotImplementedError`` (ROADMAP.md Queue 1 items 10 and 11).
+disk-cache dedup) on the plan's engine (``host`` or ``fused``); with the
+cache off, through ``simulate_group`` per (config, mix, params, dram)
+group.  The JAX package's bucketed engine and its process pool
+(``jobs > 1``) are not ported yet: asking for them raises
+``NotImplementedError`` (ROADMAP.md Queue 1 items 10b and 11).
 """
 from __future__ import annotations
 

@@ -135,8 +135,9 @@ def test_exec_plan_resolution(port_cache, monkeypatch):
 
 
 @pytest.mark.parametrize("plan,item", [
-    (dict(engine="bucketed"), "item 10"), (dict(engine="fused"), "item 10"),
-    (dict(engine="fused", cache=False), "item 10"),
+    (dict(engine="bucketed"), "item 10"),
+    (dict(engine="bucketed", cache=False), "item 10"),
+    (dict(engine="bucketed", fit_engine="segmented"), "item 10"),
     (dict(jobs=2), "item 11")])
 def test_unported_plans_raise(port_cache, plan, item):
     with pytest.raises(NotImplementedError, match=item):

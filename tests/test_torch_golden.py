@@ -1,5 +1,6 @@
-"""The golden files chip_smoke.py holds the card's runs to are what the
-JAX package computes: regenerate each in the reference child and compare
+"""The golden files chip_smoke.py holds the card's runs to (the data
+point, the test_system spec, fig. 17's scheduler cell and the serving
+model) are what the JAX package computes: regenerate each in the reference child and compare
 with the committed file, field for field.  The serving golden is also held
 to the port on the CPU, through the same checks chip_smoke.py runs on the
 card (phases 8g and 9)."""
@@ -16,6 +17,7 @@ GOLDEN_DIR = os.path.join(ROOT, "src", "repro_torch", "golden")
 GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
 SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
 LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
+SCHED = os.path.join(GOLDEN_DIR, "config1_sched.json")
 
 
 def _fresh(tmp_path, mode):
@@ -68,6 +70,19 @@ def test_system_golden_holds_the_paper_orderings(system):
     for name, want in segmented["points"].items():
         got = system["points"][name]
         assert {k: got[k] for k in want} == want, name
+
+
+def test_sched_golden_file_is_the_reference(tmp_path):
+    """fig. 17's scheduler cell: the JAX package's host and fused engines
+    agree, and fig. 17's sched_dmr_delta (the largest |SQUASH - FR-FCFS|
+    dmr difference) is above 0, the floor its trend gate holds."""
+    fresh = _fresh(tmp_path, "sched")
+    with open(SCHED) as f:
+        committed = json.load(f)
+    assert committed == fresh
+    assert committed["preset"] == "full"
+    assert committed["points"]["host"] == committed["points"]["fused"]
+    assert committed["sched_dmr_delta"] > 0
 
 
 @pytest.fixture(scope="module")

@@ -60,11 +60,20 @@ def test_policy_and_dram_tables_equal():
 
 
 def test_sched_dram_not_ported(monkeypatch):
+    """(The name predates the port of the scheduled backend.)
+    ``REPRO_DRAM=sched`` and each scheduled model's name resolve to the
+    model the JAX package's ``default_model()`` gives, name and fields,
+    with its ``sched:<policy>`` tag; a fluid name still resolves too."""
+    names = ["sched", "DDR3_1600_8b1r_squash", "DDR4_2400_32b2r_frfcfs",
+             "DDR4_2400_32b2r_squash", "DDR4_2400_8x8"]
+    for name in names:
+        monkeypatch.setenv("REPRO_DRAM", name)
+        got, want = tdram.default_model(), jdram.default_model()
+        assert type(got).__name__ == type(want).__name__, name
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        assert tdram.dram_kind(got) == jdram.dram_kind(want), name
     monkeypatch.setenv("REPRO_DRAM", "sched")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tdram.default_model()
-    monkeypatch.setenv("REPRO_DRAM", "DDR4_2400_8x8")
-    assert tdram.default_model().name == jdram.default_model().name
+    assert tdram.dram_kind(tdram.default_model()) == "sched:squash"
 
 
 @pytest.mark.parametrize("variant", sorted(jlrpt.VARIANTS))

@@ -70,5 +70,7 @@ def test_every_port_module_is_checked():
                  "kernels/flash_attention/ops.py",
                  "kernels/flash_attention/kernel.py", "train/step.py",
                  "serve/hydra_scheduler.py", "serve/engine.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "core/dramsched.py", "core/fused.py",
+                 "kernels/llc_rounds/ops.py",
+                 "kernels/llc_rounds/kernel.py"):
         assert must in names

@@ -164,6 +164,7 @@ def test_cuda_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "NVCC_DEFAULT",
                         os.path.join(str(tmp_path), "no-nvcc"))
     assert _build.sources() == ["flash_attention", "kmeans_assign",
-                                "kmeans_assign_segmented", "ri_histogram"]
+                                "kmeans_assign_segmented", "llc_rounds",
+                                "ri_histogram"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()

@@ -32,6 +32,15 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
 * ``kmeans_fit`` -- the JAX masked, LERN-layer and segmented k-means fits
                 of the ``KMEANS_*`` cases (``tests/test_torch_kmeans_fit.py``),
                 pickled.
+* ``fused``  -- the JAX fused engine (``fused.drive_lanes_fused``) on the
+                ``FUSED_CASES`` groups (``tests/test_torch_fused.py``),
+                pickled.
+* ``sched``  -- fig. 17's scheduler comparison cell (``SCHED_CELL``) through
+                ``exp.run`` on the host and fused engines, as JSON: what
+                ``chip_smoke.py`` phase 10 holds the card to.  Regenerate
+                the committed file with ``PYTHONPATH=src JAX_PLATFORMS=cpu
+                python tests/test_torch_sim.py sched
+                src/repro_torch/golden/config1_sched.json``.
 * ``lm_golden`` -- qwen3-1.7b at full width with its depth cut to 2 layers
                 on ``convert.lm_numpy_params(cfg, seed=0)``: last-token
                 logits of both prefill routes and 8 decode steps, plus the
@@ -94,6 +103,31 @@ SWEEP_GROUPS = (
     ("config1", "moti1", ("arp-cs-as", "arp-cs-as-large"), 40),
 )
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the fused-engine groups: (name, config, mix, policies, DRAM model,
+# max_epochs, super-step length, max_rounds, round cap) -- fluid and
+# scheduled DRAM over several super-steps, an online-LERN lane ("hydra@20":
+# a 20-epoch retrain period, which cuts the super-steps at its refits), and
+# a forced overflow: capacity 8 escalated to a cap of 40, below the
+# 41-45 rounds some epochs of config3 need, so those super-steps replay on
+# the host and the others run on the device
+FUSED_CASES = (
+    ("fluid", "config1", "moti2", ("fifo-nb", "hydra", "arp-cs-as-d",
+                                   "arp-al"), "DDR3_1600_8x8", 40, 2, None,
+     None),
+    ("sched", "config1", "moti1", ("arp-nb", "hydra", "arp-cs-as"),
+     "DDR4_2400_32b2r_squash", 60, 2, None, None),
+    ("online", "config3", "moti2", ("hydra", "hydra@20"), "DDR3_1600_8x8",
+     60, 32, None, None),
+    ("overflow", "config3", "moti2", ("hydra", "arp-cs-as-d"),
+     "DDR3_1600_8x8", 60, 2, 8, 40),
+)
+# fig. 17's scheduler comparison (benchmarks/fig17_ddr.py:43-47) on its
+# smoke footprint's mix, with two of its policies, at the full preset
+SCHED_CELL = dict(config="config1", mix="moti1", policies=("hydra",
+                                                           "fifo-nb"),
+                  drams=("DDR4_2400_32b2r_frfcfs", "DDR4_2400_32b2r_squash"),
+                  deadline_factor=1.0, preset="full",
+                  engines=("host", "fused"))
 # the serving slice: qwen3-1.7b, the serve launcher's requests and knobs
 LM_ARCH = "qwen3-1.7b"
 LM_GOLDEN = dict(n_layers=2, seed=0, batch=2, seq=512, decode_steps=8,
@@ -114,6 +148,75 @@ def small_policies(policies):
     (so the 21-epoch small point retrains once)."""
     return [policies.get("hydra"), policies.get("arp-cs-as-d"),
             policies.with_online(policies.get("hydra"), 20)]
+
+
+def fused_policies(policies, names):
+    """Policies by name; ``"base@R"`` is ``base`` with online LERN every R
+    epochs (``policies`` is either package's policy module)."""
+    out = []
+    for name in names:
+        base, _, period = name.partition("@")
+        pol = policies.get(base)
+        out.append(policies.with_online(pol, int(period)) if period else pol)
+    return out
+
+
+def fused_case_lanes(sim, policies, dram, case, **kw):
+    """Fresh lanes of one FUSED_CASES group (``kw``: the port's device)."""
+    _, config, mix, names, dram_name, epochs = case[:6]
+    p = sim.SimParams(**dict(TINY, max_epochs=epochs))
+    art = sim.load_artifacts(config, mix, p)
+    return [sim.Lane(config, mix, pol, p, dram.MODELS[dram_name],
+                     TINY_DEADLINE, art, **kw)
+            for pol in fused_policies(policies, names)]
+
+
+def drive_fused_case(fused, lanes, case):
+    """``fused.drive_lanes_fused`` on one group, at the case's super-step
+    length, round capacity and cap; returns the lanes' results."""
+    k_epochs, max_rounds, cap = case[6:]
+    saved = fused.MAX_ROUNDS_CAP
+    if cap:
+        fused.MAX_ROUNDS_CAP = cap
+    try:
+        fused.drive_lanes_fused(lanes, k_epochs=k_epochs,
+                                **({"max_rounds": max_rounds}
+                                   if max_rounds else {}))
+    finally:
+        fused.MAX_ROUNDS_CAP = saved
+    return [lane.result() for lane in lanes]
+
+
+def sched_spec(exp):
+    """SCHED_CELL as an ExperimentSpec of either package."""
+    c = SCHED_CELL
+    return exp.ExperimentSpec.grid(
+        config=c["config"], mix=c["mix"], policy=list(c["policies"]),
+        params=c["preset"], dram=list(c["drams"]),
+        deadline_factor=c["deadline_factor"])
+
+
+def sched_doc(exp, run, engines=SCHED_CELL["engines"]) -> dict:
+    """SCHED_CELL's golden document: per engine the points as
+    ``system_point``s by policy and DRAM model, each policy's SQUASH -
+    FR-FCFS dmr delta, and fig. 17's ``sched_dmr_delta`` (the largest
+    |delta|).  ``run(spec, engine)`` is either package's ``exp.run``."""
+    c = SCHED_CELL
+    fr, sq = c["drams"]
+    points = {}
+    for engine in engines:
+        rs = run(sched_spec(exp), engine)
+        pts = {}
+        for row in rs.to_rows():
+            pts.setdefault(row["policy"], {})[row["dram"]] = system_point(
+                row["result"])
+        points[engine] = pts
+    first = points[engines[0]]
+    delta = {pol: first[pol][sq]["summary"]["dmr"]
+             - first[pol][fr]["summary"]["dmr"] for pol in c["policies"]}
+    return dict(c, params=dataclasses.asdict(
+        exp.PARAMS.get(c["preset"])), points=points, dmr_delta=delta,
+        sched_dmr_delta=max(abs(v) for v in delta.values()))
 
 
 def run_child(mode: str, out: str, cache: str, timeout: float = 600):
@@ -536,6 +639,20 @@ def _child_main(mode: str, out: str) -> None:
         _lm_golden_child(out)
     elif mode == "kmeans_fit":
         _kmeans_fit_child(out)
+    elif mode == "fused":
+        from repro.core import dram, fused
+        res = {case[0]: [dataclasses.asdict(r) for r in drive_fused_case(
+            fused, fused_case_lanes(sim, policies, dram, case), case)]
+            for case in FUSED_CASES}
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    elif mode == "sched":
+        from repro import exp
+        doc = sched_doc(exp, lambda spec, engine: exp.run(
+            spec, plan=exp.ExecPlan(engine=engine, cache=False)))
+        with open(out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
     elif mode == "sweep_exp":
         from repro import exp
         from repro.core import sweep
