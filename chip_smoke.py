@@ -80,15 +80,26 @@ segmented and bucketed, config7 bucketed, the serve profile) through the
 kernels and through the plain fits in turns.
 
 The LLC round loop of an epoch chunk is one launch of ``llc_rounds``
-(``csrc/llc_rounds.cu``, one CTA per lane).  Phase 2 prints its ptxas
-report and where the SHCT tables sit; phase 3d holds it bitwise (state,
-stats, per-core counts) against its plain loop on seeded random epochs:
-chained chunks at 1024 and 2048 sets with six lanes covering every accel
-mode, core bypass, the shared predictor and fig. 18's way masks,
-SHIP_LARGE tables, all-padding rounds, the fused engine's round count and
-a side stream; phases 4, 6, 4f, 6f and 10 count its launches; phase 3b
-holds and times it at phase 4's and phase 6's largest chunks against the
-plain loop, with the bound and the chain floor.
+(``csrc/llc_rounds.cu``): one thread-block cluster per lane, the set rows
+in shared memory, a way-parallel search, the SHCT tables replicated in
+every CTA with their deltas posted through distributed shared memory.
+Phase 2 prints ptxas's registers, stack and spills of each design and the
+cluster's shape at the path's geometry (CTAs, threads, shared memory, how
+many clusters fit at once); phase 3d holds it bitwise (state, stats,
+per-core counts) against its plain loop and against the first design
+(``llc_rounds_simple``, one CTA per lane, on no path) on seeded random
+epochs: chained chunks at 1024 and 2048 sets with six lanes covering every
+accel mode, core bypass, the shared predictor and fig. 18's way masks,
+SHIP_LARGE tables, all-padding rounds, the fused engine's round count, a
+side stream, one lane through ``rounds_one``; then 8 and 32 ways (with a
+lane whose accel events may use no way), 4096 sets, every set a sampler
+(deltas from every CTA on a few entries, the counters at both ends), +1
+and -1 on one entry from two CTAs in one round at 0 and at counter_max,
+and more lanes than the card holds clusters at once.  Phases 4, 6, 4f, 6f
+and 10 count its launches; phase 3b holds both designs at phase 4's and
+phase 6's largest chunks and times them in turns beside the plain loop,
+each design's empty launch, the barrier floor (one cluster barrier a
+round with a sampler event), the bound and the chain floor.
 
 Every phase raises on failure.  Without CUDA, or without the rest of the
 repository, it exits non-zero and prints no result.
@@ -179,6 +190,25 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def queued_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Time of one call on the card when ``calls`` of them are enqueued
+    back to back between two CUDA events: where the host enqueues faster
+    than the card runs, the device time of a call without the host's gap
+    before it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 class Capture:
@@ -790,17 +820,33 @@ def llc_events(rng, n_lanes, rounds, sets, n_tags=40, p0=0.9, decay=0.93):
             np.where(valid, meta, 0).astype(np.int32))
 
 
-def llc_batch(sets, lanes, dev, ship=None):
+def llc_batch(sets, lanes, dev, ship=None, ways=16, sampler_shift=None):
     """(cfg, knobs, fresh stacked states) of a lane batch at ``sets``
-    sets, the lanes' knobs from ``lanes``."""
+    sets of ``ways`` ways, the lanes' knobs from ``lanes``."""
     import dataclasses
     from repro_torch.core import llc
-    base = llc.LLCConfig(size_bytes=sets * 64 * 16)
+    base = llc.LLCConfig(size_bytes=sets * 64 * ways, ways=ways)
     if ship is not None:
         base = dataclasses.replace(base, ship=ship)
+    if sampler_shift is not None:
+        base = dataclasses.replace(base, sampler_shift=sampler_shift)
     cfgs = [dataclasses.replace(base, **kw) for kw in lanes]
     return (cfgs[0], llc.lane_knobs(cfgs, dev),
             llc.stack_states(cfgs[0], len(cfgs), dev))
+
+
+def llc_lanes(ways):
+    """LLC_LANES with their 16-way masks repeated over ``ways`` ways (cut
+    at 8 ways, where lane 3's accel mask 0xFF00 leaves no way allowed),
+    and a lane whose accel events may use no way at all."""
+    full = (1 << ways) - 1
+
+    def widen(m):
+        return (m | m << 16) & full
+
+    lanes = [dict(kw, **{k: widen(v) for k, v in kw.items()
+                         if k.endswith("_way_mask")}) for kw in LLC_LANES]
+    return lanes + [dict(accel_mode=1, core_bypass=True, accel_way_mask=0)]
 
 
 def clone_states(states):
@@ -808,13 +854,37 @@ def clone_states(states):
     return llc.LLCState(*(x.clone() for x in states))
 
 
-def hold_llc_rounds(rops, cfg, knobs, kst, pst, line, meta, what,
-                    n_rounds=None, stream=None, plain_knobs=None):
+def rounds_simple(rops, rkernel, cfg, knobs, states, line_b, meta_b,
+                  n_rounds=None):
+    """``ops.rounds`` through the first design (``llc_rounds_simple``, one
+    CTA per lane): the state updated in place; (states, stats, percore).
+    On no path; its launches are not counted."""
+    from repro_torch.core import llc
+    if isinstance(knobs, llc.LaneKnobs):
+        knobs = rops.pack_knobs(knobs)
+    n_lanes = line_b.shape[0]
+    stats = line_b.new_empty((n_lanes, len(llc.STAT_NAMES)))
+    percore = line_b.new_empty((n_lanes, llc.NUM_CORES, 2))
+    ship = cfg.ship
+    rkernel.launch_simple(
+        line_b, meta_b, knobs, n_rounds, (states.tags, states.lru,
+                                          states.owner, states.sig,
+                                          states.reused),
+        states.tick, states.shct_core, states.shct_accel, stats, percore,
+        entries=ship.entries, sampler_shift=cfg.sampler_shift,
+        region_lines=ship.region_lines, counter_max=ship.counter_max)
+    return states, stats, percore
+
+
+def hold_llc_rounds(rops, cfg, knobs, kst, pst, line, meta, what, *,
+                    rkernel, sst, n_rounds=None, stream=None,
+                    plain_knobs=None):
     """One chunk through the kernel (on ``kst``, in place; on ``stream``
-    if given) and through the plain loop (from ``pst``; ``plain_knobs``,
-    the ``llc.LaneKnobs`` form, where ``knobs`` is the kernel's packed
-    tensor): state, stats and per-core counts bitwise.  Returns the two
-    next states."""
+    if given), through the plain loop (from ``pst``; ``plain_knobs``, the
+    ``llc.LaneKnobs`` form, where ``knobs`` is the kernel's packed
+    tensor) and through the first design (``rkernel``'s
+    ``launch_simple``, on ``sst`` in place): state, stats and per-core
+    counts bitwise.  Returns the next states (kernel, plain, simple)."""
     import torch
     if stream is None:
         kst, ks, kp = rops.rounds(cfg, knobs, kst, line, meta, n_rounds)
@@ -826,23 +896,60 @@ def hold_llc_rounds(rops, cfg, knobs, kst, pst, line, meta, what,
     pst, ps, pp = rops.lanes_plain(cfg, knobs if plain_knobs is None
                                    else plain_knobs, pst, line, meta,
                                    n_rounds)
+    sst, ss, sp = rounds_simple(rops, rkernel, cfg, knobs, sst, line, meta,
+                                n_rounds)
     torch.cuda.synchronize()
-    bad = [f for f, a, b in zip(kst._fields, kst, pst)
-           if not torch.equal(a, b)]
-    bad += [n for n, a, b in (("stats", ks, ps), ("percore", kp, pp))
-            if not torch.equal(a, b)]
-    if bad:
-        raise AssertionError(f"llc_rounds kernel != plain at {what}: {bad}")
-    return kst, pst
+    for name, ost, os_, op in (("plain", pst, ps, pp),
+                               ("llc_rounds_simple", sst, ss, sp)):
+        bad = [f for f, a, b in zip(kst._fields, kst, ost)
+               if not torch.equal(a, b)]
+        bad += [n for n, a, b in (("stats", ks, os_), ("percore", kp, op))
+                if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"llc_rounds kernel != {name} at {what}: "
+                                 f"{bad}")
+    return kst, pst, sst
 
 
-def check_llc_rounds(rops, dev) -> dict:
-    """Phase 3d: the kernel against its plain version, bitwise, on seeded
-    random epochs: chained chunks at 1024 and 2048 sets with the six lanes
-    of LLC_LANES, SHIP_LARGE tables (device memory), rounds that are all
+def llc_collision_events(sets, ways):
+    """A chunk of ways + 1 rounds in which sampler sets 0 and sets / 2
+    (in different CTAs of a cluster) post +1 and -1 on one SHCT entry in
+    the same round: set 0 inserts line 0 in round 0 and hits it in the
+    last round; set sets / 2 inserts line 1 (the same 32-line region, so
+    the same signature) in round 0, then lines of other regions, and the
+    last round's insert evicts line 1, never reused.  Returns (line,
+    meta, entry): [1, R, S] int32 and the shared core-table entry; set to
+    0 or counter_max before the chunk, it ends there (the deltas summed,
+    then clipped), where adding and clipping them one by one would not."""
+    import numpy as np
+    import torch
+    from repro_torch.core import llc, ship
+    rounds = ways + 1
+    line = np.full((1, rounds, sets), -1, dtype=np.int32)
+    meta = np.zeros_like(line)
+    half = sets // 2
+    line[0, 0, 0], line[0, 0, half] = 0, 1
+    for r in range(1, ways):
+        line[0, r, half] = 64 * r
+    line[0, ways, 0], line[0, ways, half] = 0, 64 * ways
+    meta[line >= 0] = llc.M_VALID
+    entry = int(ship.signature(torch.tensor([0]), ship.SHIP_DEFAULT)[0])
+    return line, meta, entry
+
+
+def check_llc_rounds(rops, rkernel, dev) -> dict:
+    """Phase 3d: the kernel against its plain version and against the
+    first design (``llc_rounds_simple``), bitwise, on seeded random
+    epochs: chained chunks at 1024 and 2048 sets with the six lanes of
+    LLC_LANES, SHIP_LARGE tables (device memory), rounds that are all
     padding, the fused engine's round count (n_rounds), one lane through
-    ``rounds_one``, and a side stream.  Returns the number of chunks held
-    and the cases' names."""
+    ``rounds_one``, and a side stream; then the cluster design's edges: 8
+    and 32 ways (with a lane whose accel events may use no way), 4096
+    sets, every set a sampler with lines from a few regions (deltas from
+    many CTAs on the same entries, the counters at both ends), +1 and -1
+    on one entry from two CTAs in one round at 0 and at counter_max, and
+    more lanes than the card holds clusters at once (waves).  Returns the
+    number of chunks held and the cases' names."""
     import numpy as np
     import torch
     from repro_torch.core import llc
@@ -857,18 +964,19 @@ def check_llc_rounds(rops, dev) -> dict:
                             (2048, None, "2048 sets"),
                             (1024, SHIP_LARGE, "1024 sets, SHIP_LARGE")):
         cfg, knobs, kst = llc_batch(sets, LLC_LANES, dev, ship)
-        pst = clone_states(kst)
+        pst, sst = clone_states(kst), clone_states(kst)
         for r in LLC_CHUNKS:
             line, meta = llc_events(rng, len(LLC_LANES), r, sets)
-            kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, t(line),
-                                       t(meta), f"{tag}, R={r}")
+            kst, pst, sst = hold_llc_rounds(
+                rops, cfg, knobs, kst, pst, t(line), t(meta),
+                f"{tag}, R={r}", rkernel=rkernel, sst=sst)
             held += 1
         pad_l = torch.full((len(LLC_LANES), 16, sets), -1, dtype=torch.int32,
                            device=dev)
         before = clone_states(kst)
-        kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, pad_l,
-                                   torch.zeros_like(pad_l),
-                                   f"{tag}, all padding")
+        kst, pst, sst = hold_llc_rounds(
+            rops, cfg, knobs, kst, pst, pad_l, torch.zeros_like(pad_l),
+            f"{tag}, all padding", rkernel=rkernel, sst=sst)
         same = all(torch.equal(a, b) for f, a, b in zip(
             kst._fields, kst, before) if f != "tick")
         if not same or not torch.equal(kst.tick, before.tick + 16):
@@ -876,31 +984,124 @@ def check_llc_rounds(rops, dev) -> dict:
                                  f"state at {tag}")
         line, meta = llc_events(rng, len(LLC_LANES), 64, sets)
         n_r = t(rng.integers(0, 64, len(LLC_LANES)).astype(np.int32))
-        kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, t(line),
-                                   t(meta), f"{tag}, n_rounds {n_r.tolist()}",
-                                   n_rounds=n_r)
+        kst, pst, sst = hold_llc_rounds(
+            rops, cfg, knobs, kst, pst, t(line), t(meta),
+            f"{tag}, n_rounds {n_r.tolist()}", n_rounds=n_r,
+            rkernel=rkernel, sst=sst)
         line, meta = llc_events(rng, len(LLC_LANES), 32, sets)
-        kst, pst = hold_llc_rounds(rops, cfg, knobs, kst, pst, t(line),
-                                   t(meta), f"{tag}, side stream",
-                                   stream=torch.cuda.Stream())
+        kst, pst, sst = hold_llc_rounds(
+            rops, cfg, knobs, kst, pst, t(line), t(meta),
+            f"{tag}, side stream", stream=torch.cuda.Stream(),
+            rkernel=rkernel, sst=sst)
         held += 3
         cases.append(tag)
     for kw in LLC_LANES:
         cfg, _, _ = llc_batch(1024, [kw], dev)
         kst = llc.init_state(cfg, dev)
-        pst = llc.LLCState(*(x.clone() for x in kst))
+        pst, sst = clone_states(kst), clone_states(kst)
+        one = llc.LLCState(*(x.unsqueeze(0) if x.dim() else x.view(1)
+                             for x in sst))   # views: updates sst
         for r in (8, 64):
             line, meta = llc_events(rng, 1, r, 1024)
             kst, ks, kp = rops.rounds_one(cfg, kst, t(line[0]), t(meta[0]))
             pst, ps, pp = rops.epoch_plain(cfg, pst, t(line[0]), t(meta[0]))
+            _, ss, sp = rounds_simple(rops, rkernel, cfg,
+                                      rops.config_knobs(cfg, dev), one,
+                                      t(line), t(meta))
             torch.cuda.synchronize()
-            if not (all(torch.equal(a, b) for a, b in zip(kst, pst))
-                    and torch.equal(ks, ps) and torch.equal(kp, pp)):
-                raise AssertionError(f"llc_rounds one lane {kw}, R={r}: "
-                                     f"kernel != plain")
+            for name, ost, os_, op in (("plain", pst, ps, pp),
+                                       ("llc_rounds_simple", sst, ss[0],
+                                        sp[0])):
+                if not (all(torch.equal(a, b) for a, b in zip(kst, ost))
+                        and torch.equal(ks, os_) and torch.equal(kp, op)):
+                    raise AssertionError(f"llc_rounds one lane {kw}, R={r}: "
+                                         f"kernel != {name}")
             held += 1
     cases.append("one lane x 6 knobs")
+
+    # the cluster design's edges
+    for sets, ways, shift, tag in ((1024, 8, None, "8 ways"),
+                                   (512, 32, None, "32 ways"),
+                                   (4096, 16, None, "4096 sets"),
+                                   (1024, 16, 0, "every set a sampler")):
+        lanes = llc_lanes(ways)
+        cfg, knobs, kst = llc_batch(sets, lanes, dev, ways=ways,
+                                    sampler_shift=shift)
+        pst, sst = clone_states(kst), clone_states(kst)
+        # with every set a sampler, each round's deltas from all CTAs fall on
+        # a few entries: 16 lines of one region (hits: the entry climbs to
+        # counter_max), then 128 lines of four (evictions: down to 0)
+        for r, pool, end in ((32, 16, cfg.ship.counter_max), (128, 128, 0)):
+            if shift == 0:
+                line, meta = llc_events(rng, len(lanes), r, sets, p0=1.0,
+                                        decay=0.99)
+                line = np.where(line >= 0, rng.integers(0, pool, line.shape),
+                                -1).astype(np.int32)
+            else:
+                line, meta = llc_events(rng, len(lanes), r, sets,
+                                        n_tags=3 * ways)
+            kst, pst, sst = hold_llc_rounds(
+                rops, cfg, knobs, kst, pst, t(line), t(meta),
+                f"{tag}, R={r}", rkernel=rkernel, sst=sst)
+            held += 1
+            tabs = torch.cat([kst.shct_core, kst.shct_accel])
+            if shift == 0 and not bool((tabs == end).any()):
+                raise AssertionError(f"llc_rounds: the colliding deltas of "
+                                     f"R={r} left no counter at {end}")
+        cases.append(tag)
+    cfg, knobs, st0 = llc_batch(1024, [{}], dev)
+    cmax = cfg.ship.counter_max
+    for init in (0, cmax):
+        line, meta, entry = llc_collision_events(1024, cfg.ways)
+        kst = clone_states(st0)
+        kst.shct_core[0, entry] = init
+        pst, sst = clone_states(kst), clone_states(kst)
+        kst, pst, sst = hold_llc_rounds(
+            rops, cfg, knobs, kst, pst, t(line), t(meta),
+            f"+1 and -1 on entry {entry} from sets 0 and 512 at {init}",
+            rkernel=rkernel, sst=sst)
+        if int(kst.shct_core[0, entry]) != init:
+            raise AssertionError(f"llc_rounds: +1 and -1 on one entry at "
+                                 f"{init} ended at "
+                                 f"{int(kst.shct_core[0, entry])}")
+        held += 1
+    cases.append("+1/-1 on one entry from two CTAs at 0 and counter_max")
+    shape = rkernel.cluster_shape(1024, 16, cfg.ship.entries,
+                                  cfg.sampler_shift)
+    n_lanes = 132 // shape["cluster"] + 12
+    lanes = [LLC_LANES[i % len(LLC_LANES)] for i in range(n_lanes)]
+    cfg, knobs, kst = llc_batch(1024, lanes, dev)
+    pst, sst = clone_states(kst), clone_states(kst)
+    for r in (32, 64):
+        line, meta = llc_events(rng, n_lanes, r, 1024)
+        kst, pst, sst = hold_llc_rounds(
+            rops, cfg, knobs, kst, pst, t(line), t(meta),
+            f"{n_lanes} lanes, R={r}", rkernel=rkernel, sst=sst)
+        held += 1
+    cases.append(f"{n_lanes} lanes of {shape['cluster']} CTAs (waves: "
+                 f"{shape['active_clusters']} clusters at once)")
     return {"held": held, "cases": cases}
+
+
+def llc_ptxas(report: str) -> dict:
+    """The ``-Xptxas -v`` report of ``llc_rounds.cu``, per kernel:
+    registers, stack frame and spills."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            k = re.search(r"llc_rounds_cluster_kernelILb([01])ELi(\d)E", name)
+            name = (f"cluster kernel (SHCT in "
+                    f"{'shared' if k.group(1) == '1' else 'device'} memory, "
+                    f"stage {k.group(2)})" if k else
+                    "simple kernel" if "llc_rounds_simple_kernel" in name
+                    else None)
+            continue
+        if name and ("stack frame" in ln or "registers" in ln):
+            out[name] = (out.get(name, "") + " " + ln.split(":")[-1].strip()
+                         ).strip()
+    return out
 
 
 def llc_bound(cfg, n_lanes, rounds, clock_mhz) -> tuple:
@@ -976,11 +1177,34 @@ class SyncChecked:
         self.fused._superstep = self.fn
 
 
+def llc_shaped(rkernel, cfg, knobs, st, line, meta, n_r, stage,
+               cluster=0, threads=0):
+    """One launch of the cluster kernel at ``stage`` (-1 empty, 0 its
+    cluster barriers only, 1 + events, 2 + row search, 3 all) and shape on
+    ``st`` (a scratch copy: stages below 3 leave no result); not
+    counted."""
+    from repro_torch.core import llc
+    n_lanes = line.shape[0]
+    stats = line.new_empty((n_lanes, len(llc.STAT_NAMES)))
+    percore = line.new_empty((n_lanes, llc.NUM_CORES, 2))
+    ship = cfg.ship
+    rkernel.launch_shaped(
+        line, meta, knobs, n_r, (st.tags, st.lru, st.owner, st.sig,
+                                 st.reused),
+        st.tick, st.shct_core, st.shct_accel, stats, percore,
+        entries=ship.entries, sampler_shift=cfg.sampler_shift,
+        region_lines=ship.region_lines, counter_max=ship.counter_max,
+        cluster=cluster, threads=threads, stage=stage)
+
+
 def time_llc_rounds(rops, rkernel, args, dev, clock) -> dict:
-    """The kernel held bitwise and timed at a path's captured chunk: CUDA
-    events around a wrapper call (``time_ms``), the plain loop and the
-    kernel in turns (wall, synced), the empty launch, bytes and chain
-    floor."""
+    """Both designs held bitwise (against the plain loop) and timed at a
+    path's captured chunk: CUDA events around a wrapper call (``time_ms``)
+    of the cluster kernel and of the first design, the two and the plain
+    loop in turns (wall, synced), the empty launch of each design, the
+    barrier floor (the cluster kernel's stage 0: the cluster barriers it
+    takes on the chunk, the rounds with a sampler event, and nothing
+    else), bytes and chain floor."""
     from repro_torch.core import llc
     cfg, knobs, st, line, meta, n_r = args
     n_lanes, rounds, sets = line.shape
@@ -990,20 +1214,42 @@ def time_llc_rounds(rops, rkernel, args, dev, clock) -> dict:
         raise AssertionError("llc_rounds capture: knobs of another batch")
     hold_llc_rounds(rops, cfg, knobs, clone_states(st), clone_states(st),
                     line, meta, "the path's input", n_rounds=n_r,
-                    plain_knobs=plain_knobs)
-    work = clone_states(st)
-    t = turns({"kernel": lambda: rops.rounds(cfg, knobs, work, line, meta,
-                                             n_r),
+                    plain_knobs=plain_knobs, rkernel=rkernel,
+                    sst=clone_states(st))
+    packed = rops.pack_knobs(knobs) if isinstance(knobs, llc.LaneKnobs) \
+        else knobs
+    work, work_s, scratch = (clone_states(st) for _ in range(3))
+
+    def cluster():
+        rops.rounds(cfg, packed, work, line, meta, n_r)
+
+    def simple():
+        rounds_simple(rops, rkernel, cfg, packed, work_s, line, meta, n_r)
+
+    t = turns({"cluster": cluster, "simple": simple,
                "plain": lambda: rops.lanes_plain(cfg, plain_knobs, st, line,
                                                  meta, n_r)}, reps=3)
-    ms = time_ms(lambda: rops.rounds(cfg, knobs, work, line, meta, n_r),
-                 reps=20)
-    floor = time_ms(lambda: rkernel.launch_empty(n_lanes, sets, dev),
-                    reps=20)
+    ms = time_ms(cluster, reps=20)
+    simple_ms = time_ms(simple, reps=20)
+    queued = {"cluster": queued_ms(cluster), "simple": queued_ms(simple)}
+    empty = time_ms(lambda: llc_shaped(rkernel, cfg, packed, scratch, line,
+                                       meta, n_r, -1), reps=20)
+    barriers = time_ms(lambda: llc_shaped(rkernel, cfg, packed, scratch,
+                                          line, meta, n_r, 0), reps=20)
+    simple_empty = time_ms(lambda: rkernel.launch_empty(n_lanes, sets, dev),
+                           reps=20)
     r_eff = rounds if n_r is None else min(int(n_r.max()), rounds)
     n_bytes, chain = llc_bound(cfg, n_lanes, r_eff, clock)
-    return {"ms": ms, "turn_ms": t["kernel"], "plain_ms": t["plain"],
-            "empty_ms": floor, "bytes": n_bytes, "chain_ms": chain,
+    return {"ms": ms, "simple_ms": simple_ms,
+            "queued_ms": queued["cluster"],
+            "simple_queued_ms": queued["simple"],
+            "turn_ms": t["cluster"], "simple_turn_ms": t["simple"],
+            "plain_ms": t["plain"], "empty_ms": empty,
+            "simple_empty_ms": simple_empty, "barrier_ms": barriers,
+            "bytes": n_bytes, "chain_ms": chain,
+            "cluster": rkernel.cluster_shape(sets, cfg.ways,
+                                             cfg.ship.entries,
+                                             cfg.sampler_shift, rounds),
             "shape": {"L": n_lanes, "R": r_eff, "S": sets, "W": cfg.ways,
                       "T": cfg.ship.entries}}
 
@@ -1525,15 +1771,16 @@ def main() -> int:
             raise AssertionError(f"the Hopper flash kernel at d={d} does not "
                                  f"run both products on the tensor cores: "
                                  f"{hgmma.get(d)}")
-    rep = reports.get("llc_rounds", "")
-    entry = rep.split("llc_rounds_kernel", 1)[-1] if rep else ""
-    log(f"[build] llc_rounds kernel: " + (" | ".join(
-        ln.strip() for ln in entry.splitlines()[:4]
-        if "registers" in ln or "spill" in ln or "stack" in ln)
-        or "no report (built before)") + f" | SHCT tables in shared memory:"
-        f" SHIP_DEFAULT ({SHIP_DEFAULT.entries} entries) "
-        f"{rkernel.smem_tables(SHIP_DEFAULT.entries)}, SHIP_LARGE "
-        f"({SHIP_LARGE.entries}) {rkernel.smem_tables(SHIP_LARGE.entries)}")
+    ptx = llc_ptxas(reports.get("llc_rounds", ""))
+    shapes = {name: rkernel.cluster_shape(1024, 16, ship.entries, 5)
+              for name, ship in (("SHIP_DEFAULT", SHIP_DEFAULT),
+                                 ("SHIP_LARGE", SHIP_LARGE))}
+    log("[build] llc_rounds (ptxas): " + ("; ".join(
+        f"{k}: {v}" for k, v in ptx.items()) or "no report (built before)")
+        + "; the path's shape at 1024 sets x 16 ways: " + "; ".join(
+            f"{name}: {sh}" for name, sh in shapes.items()))
+    if min(sh["active_clusters"] for sh in shapes.values()) < 1:
+        raise AssertionError(f"llc_rounds: no cluster fits: {shapes}")
     size, active = hkernel.cluster()
     log(f"[build] nvcc {t_nvcc:.1f} s; ri_histogram: one cluster of {size} "
         f"CTAs x 1024 threads a launch, cudaOccupancyMaxActiveClusters "
@@ -1616,9 +1863,10 @@ def main() -> int:
 
     # 3d. llc_rounds against its plain loop on seeded random epochs
     t0 = time.time()
-    r3d = check_llc_rounds(rops, dev)
-    log(f"[llc_rounds] 3d: kernel == plain (bitwise: state, stats, per-core"
-        f" counts) on {r3d['held']} chunks: {r3d['cases']}, chained chunks "
+    r3d = check_llc_rounds(rops, rkernel, dev)
+    log(f"[llc_rounds] 3d: cluster kernel == plain == llc_rounds_simple "
+        f"(bitwise: state, stats, per-core counts) on {r3d['held']} chunks: "
+        f"{r3d['cases']}, chained chunks "
         f"of {LLC_CHUNKS} rounds, the six lanes' knobs {list(LLC_LANES)}, "
         f"all-padding rounds, n_rounds, a side stream; "
         f"{time.time() - t0:.1f} s")
@@ -2091,11 +2339,23 @@ def main() -> int:
         "src/repro/core/llc.py:213", launches["llc_rounds"], 0, r4["ms"],
         r4["plain_ms"], r4["bytes"], 0, None, r4["shape"]))
     for where, r, calls in (("phase 4", r4, cap_r), ("phase 6", r6, cap_r6)):
+        c = r["cluster"]
         log(f"[llc_rounds] at {where}'s largest chunk {r['shape']} (of "
-            f"{calls.calls} calls, {calls.rounds} rounds): kernel == plain "
-            f"bitwise; wrapper {r['ms']:.4f} ms (CUDA events), in turns "
-            f"kernel {r['turn_ms']:.4f} ms vs plain loop {r['plain_ms']:.2f}"
-            f" ms (wall, synced), empty launch {r['empty_ms']:.4f} ms; bound "
+            f"{calls.calls} calls, {calls.rounds} rounds): cluster kernel == "
+            f"plain == llc_rounds_simple bitwise; clusters of {c['cluster']} "
+            f"CTAs x {c['threads']} threads, {c['cta_sets']} sets a CTA, "
+            f"{c['smem_bytes']} bytes of shared memory a CTA (SHCT tables "
+            f"in it: {bool(c['smem_tables'])}), {c['group_lanes']} lanes a "
+            f"set, {c['active_clusters']} clusters at once; CUDA events: "
+            f"cluster {r['ms']:.4f} ms, simple "
+            f"{r['simple_ms']:.4f} ms; 20 enqueued back to back: cluster "
+            f"{r['queued_ms']:.4f} ms, simple {r['simple_queued_ms']:.4f} ms "
+            f"a call; in turns (wall, synced): cluster "
+            f"{r['turn_ms']:.4f} ms, simple {r['simple_turn_ms']:.4f} ms, "
+            f"plain loop {r['plain_ms']:.2f} ms; empty launch: cluster "
+            f"{r['empty_ms']:.4f} ms, simple {r['simple_empty_ms']:.4f} ms; "
+            f"barrier floor (the kernel's cluster barriers alone) "
+            f"{r['barrier_ms']:.4f} ms; bound "
             f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes), chain "
             f"floor {r['chain_ms']:.5f} ms ({r['shape']['R']} rounds at "
             f"{clock:.0f} MHz); none in the library")

@@ -110,7 +110,15 @@ def simulate_group(config: str, mix: str, pols: Sequence[Policy],
     (the lane-batched per-epoch host loop), ``"fused"`` (the device-resident
     super-step engine, ``core/fused.py``) or ``"auto"`` (the fused engine
     for every eligible geometry batch; ``REPRO_FUSED=0`` pins it to the
-    host loop)."""
+    host loop).
+
+    The default is ``"host"``, where the reference
+    (``repro.core.sweep.simulate_group``) defaults to ``"auto"``: results
+    are bitwise equal on either engine, and on the card the fused engine
+    is the slower one (its host dispatch of ~300 small ops an epoch
+    against one round-loop launch an epoch on the host engine; PERF.md
+    section 5), so the port keeps the faster route until the bucketed
+    engine batches the fused one."""
     _check_engine(engine)
     dev = _device.resolve(device)
     p = params or sim.SimParams()
@@ -349,7 +357,12 @@ def map_points(points: Sequence[SweepPoint], jobs: int = 1,
     receives per-point records
     and fault/recovery events; a failing group retries ``retries`` times
     (default ``REPRO_TASK_RETRIES``).  Returns results in ``points``
-    order."""
+    order.
+
+    ``engine`` defaults to ``"host"`` where the reference
+    (``repro.core.sweep.map_points``) defaults to ``"auto"``, for the
+    reason ``simulate_group`` gives: equal results, and the host engine is
+    the faster one on the card."""
     _check_engine(engine)
     if jobs > 1:
         raise NotImplementedError(

@@ -7,8 +7,12 @@ JAX (``repro/core/llc.py::round_transition`` :213 under ``lax.scan`` in
 ``repro/core/fused.py::_run_rounds_batch`` :496).  The plain versions
 below are the port's round loops (one ``llc.round_transition`` a round,
 about 70 small torch ops); on the card each chunk is one launch of
-``csrc/llc_rounds.cu``, bound by the chain of its R dependent rounds, not
-by bytes.
+``csrc/llc_rounds.cu``'s cluster kernel (one thread-block cluster a lane,
+the set rows in shared memory, a way-parallel search, the SHCT tables
+replicated in every CTA and their deltas posted through distributed
+shared memory), bound by the chain of its R dependent rounds, not by
+bytes.  If the cluster launch is refused the wrapper raises; the first
+design (``kernel.launch_simple``) is on no path.
 
 ``rounds`` (a lane batch) and ``rounds_one`` (one lane) take the plain
 version for CPU tensors and launch the kernel for CUDA tensors or raise;
@@ -24,7 +28,8 @@ import torch
 from ...core import llc
 from . import kernel
 
-# a thread of the kernel holds its per-core counts in 16 bits
+# the first design (kernel.launch_simple) holds a thread's per-core counts
+# in 16 bits; both designs take the same range
 MAX_ROUNDS = (1 << 16) // 4 - 1
 MAX_SETS = 4096
 _KNOBS = {}

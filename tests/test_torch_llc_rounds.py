@@ -17,6 +17,7 @@ from repro.core import llc as jllc
 from repro.core.ship import SHIP_LARGE as JSHIP_LARGE
 from repro_torch.core import llc as tllc
 from repro_torch.core.ship import SHIP_LARGE
+from repro_torch.core.ship import signature as ship_signature
 from repro_torch.kernels.llc_rounds import ops as rops
 
 SETS = 64
@@ -173,13 +174,139 @@ def test_wrappers_raise_without_a_card(monkeypatch):
 
 
 def test_source_keeps_one_launch_and_its_barriers():
-    """The CUDA source launches the round loop once a call and keeps the
-    round's barrier between the SHCT reads and the adds."""
+    """The CUDA source launches the path's kernel (one thread-block cluster
+    per lane) once a call, keeps a cluster barrier between a round's SHCT
+    reads and the adds of its deltas, and keeps the first design as
+    ``llc_rounds_simple`` with its own one launch."""
     import os
+    import re
     from repro_torch.kernels import _build
     with open(os.path.join(_build.CSRC, "llc_rounds.cu")) as f:
         src = f.read()
-    assert src.count("llc_rounds_kernel<<<") == 1
+    # one cluster launch: the C entry point llc_rounds goes through
+    # launch_shaped at the full stage, whose one cudaLaunchKernelEx carries
+    # the cluster dimension
+    entry = src[src.index('extern "C" int llc_rounds(const int* line'):]
+    entry = entry[:entry.index("\n}\n")]
+    assert entry.count("launch_shaped(") == 1 and "kAll" in entry
+    assert src.count("cudaLaunchKernelEx(") == 1
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "llc_rounds_cluster_kernel<true, kAll>" in src
+    assert "llc_rounds_cluster_kernel<false, kAll>" in src
+    # in the cluster kernel: the SHCT reads, then a cluster barrier, then
+    # the adds of the round's deltas
+    body = src[src.index("llc_rounds_cluster_kernel(Params p)"):
+               src.index("llc_rounds_cluster_empty_kernel")]
+    read = body.index("table_at<kSmemTables>(tc, sig_e)")
+    post = body.index("cluster.map_shared_rank(box, c)")
+    barrier = body.index("cluster.sync();", post)
+    add = body.index("atomicAdd(((word & 4) ? ta : tc)")
+    assert read < post < barrier < add
+    assert re.search(r"if \(!\(\(bars >> j\) & 1u\)\) continue;", body)
+    # the first design, on no path
+    assert src.count("llc_rounds_simple_kernel<<<") == 1
     assert "__syncthreads_or(mine)" in src
     # the paths' LLCs: 1024 sets, and 2048 at fig. 16's 16 MB
     assert 2 * tllc.LLCConfig().num_sets <= rops.MAX_SETS
+
+
+# ---------------------------------------------------------------------------
+# the edges the cluster kernel brings out (its sets cut into CTAs, a group of
+# lanes a set, SHCT deltas from several CTAs in one round), held between the
+# plain loop and the JAX engine
+# ---------------------------------------------------------------------------
+def _jax_and_plain(cfg_kw, lanes, line, meta, init=None):
+    """One chunk through the JAX ``simulate_epoch_lanes`` and the port's
+    plain loop from fresh states (``init``: (lane, entry, value) set in
+    the core SHCT table first); both results, states compared bitwise."""
+    jcfgs = [jllc.LLCConfig(**cfg_kw, **k) for k in lanes]
+    tcfgs = [tllc.LLCConfig(**cfg_kw, **k) for k in lanes]
+    jst = jllc.stack_states(jcfgs[0], len(lanes))
+    tst = tllc.stack_states(tcfgs[0], len(lanes), "cpu")
+    if init is not None:
+        lane, entry, value = init
+        jst = jst._replace(shct_core=jst.shct_core.at[lane, entry].set(value))
+        tst.shct_core[lane, entry] = value
+    jst, js, jp = jllc.simulate_epoch_lanes(jcfgs[0], jllc.lane_knobs(jcfgs),
+                                            jst, jnp.asarray(line),
+                                            jnp.asarray(meta))
+    tst, ts, tp = rops.rounds(tcfgs[0], tllc.lane_knobs(tcfgs, "cpu"), tst,
+                              torch.as_tensor(line), torch.as_tensor(meta))
+    _assert_same(tst, ts, tp, jst, js, jp, f"{cfg_kw} {lanes}")
+    return tcfgs[0], tst, ts
+
+
+def _collision_chunk(sets, ways):
+    """ways + 1 rounds in which sampler sets 0 and sets / 2 (in different
+    CTAs of any cluster of 2 or more) post +1 and -1 on one SHCT entry in
+    the last round: set 0 hits line 0, inserted in round 0; set sets / 2
+    evicts line 1 (the same 32-line region, so the same signature),
+    inserted in round 0 and never reused, after lines of other regions
+    filled its ways."""
+    rounds = ways + 1
+    line = np.full((1, rounds, sets), -1, dtype=np.int32)
+    half = sets // 2
+    line[0, 0, 0], line[0, 0, half] = 0, 1
+    for r in range(1, ways):
+        line[0, r, half] = 64 * r
+    line[0, ways, 0], line[0, ways, half] = 0, 64 * ways
+    meta = np.where(line >= 0, jllc.M_VALID, 0).astype(np.int32)
+    return line, meta
+
+
+@pytest.mark.parametrize("at", ["zero", "counter_max"])
+def test_opposite_deltas_from_two_ctas_sum_then_clip(at):
+    """+1 and -1 on one SHCT entry in the same round from sets that fall in
+    different CTAs of the cluster: the deltas are summed, then clipped, so
+    an entry at 0 or at counter_max ends where it was (adding and clipping
+    them one by one would end at 1 or counter_max - 1)."""
+    line, meta = _collision_chunk(SETS, 16)
+    cfg = tllc.LLCConfig(size_bytes=SETS * 64 * 16)
+    entry = int(ship_signature(torch.tensor([0]), cfg.ship)[0])
+    assert entry == int(ship_signature(torch.tensor([1]), cfg.ship)[0])
+    value = 0 if at == "zero" else cfg.ship.counter_max
+    _, tst, ts = _jax_and_plain(dict(size_bytes=SETS * 64 * 16), [{}], line,
+                                meta, init=(0, entry, value))
+    assert int(tst.shct_core[0, entry]) == value
+    assert int(ts[0, 0]) == 1 and int(ts[0, 7]) == 1   # the hit, the eviction
+
+
+@pytest.mark.parametrize("ways", [8, 32])
+def test_plain_rounds_match_jax_other_ways(ways):
+    """8 and 32 ways (a group of 8 or 32 lanes a set in the cluster
+    kernel), the knobs of LANES with their masks over all ways, and a lane
+    whose accel events may use no way; chained chunks of 8 and 24
+    rounds."""
+    rng = np.random.default_rng(ways)
+    full = (1 << ways) - 1
+    lanes = [dict(kw, **{k: (v | v << 16) & full for k, v in kw.items()
+                         if k.endswith("_way_mask")}) for kw in LANES]
+    lanes.append(dict(accel_mode=1, core_bypass=True, accel_way_mask=0))
+    kw = dict(size_bytes=SETS * 64 * ways, ways=ways)
+    jcfgs = [jllc.LLCConfig(**kw, **k) for k in lanes]
+    tcfgs = [tllc.LLCConfig(**kw, **k) for k in lanes]
+    jst = jllc.stack_states(jcfgs[0], len(lanes))
+    tst = tllc.stack_states(tcfgs[0], len(lanes), "cpu")
+    jkn, tkn = jllc.lane_knobs(jcfgs), tllc.lane_knobs(tcfgs, "cpu")
+    for r in (8, 24):
+        line, meta = _events(rng, len(lanes), r, n_tags=3 * ways)
+        jst, js, jp = jllc.simulate_epoch_lanes(jcfgs[0], jkn, jst,
+                                                jnp.asarray(line),
+                                                jnp.asarray(meta))
+        tst, ts, tp = rops.rounds(tcfgs[0], tkn, tst, torch.as_tensor(line),
+                                  torch.as_tensor(meta))
+        _assert_same(tst, ts, tp, jst, js, jp, f"W={ways} R={r}")
+
+
+def test_no_way_allowed_takes_way_0():
+    """An insert for a side whose way mask allows no way goes to way 0
+    (the argmin over all-excluded ways), evicting what is there, although
+    other ways are empty."""
+    line = np.full((1, 2, SETS), -1, dtype=np.int32)
+    line[0, :, 5] = (5, 5 + SETS)
+    meta = np.where(line >= 0, jllc.M_VALID | jllc.M_ACCEL, 0).astype(
+        np.int32)
+    _, tst, ts = _jax_and_plain(dict(size_bytes=SETS * 64 * 8, ways=8),
+                                [dict(accel_way_mask=0)], line, meta)
+    assert tst.tags[0, 5].tolist() == [5 + SETS] + [-1] * 7
+    assert int(ts[0, 7]) == 1     # one eviction
