@@ -26,6 +26,17 @@ port's two paths at full size, each with the kernels' launch counts set to
   an empty cache, held to the same golden files; each super-step of the
   fused engine runs under ``torch.cuda.set_sync_debug_mode("error")``,
   and a phase fails if no super-step ran on the card;
+* phase 6b, the same spec through ``ExecPlan(engine="bucketed",
+  fit_engine="bucketed")`` from an empty cache, held to the same golden
+  file, each super-step of the bucketed engine under the same sync check,
+  with its wall beside phases 6 and 6f and the engine's phase split;
+  phase 6c, a sweep whose buckets hold two groups each at full width
+  (``config3`` at the ``full`` preset, the six ``test_system`` policies
+  on ``moti2`` and ``moti1``, three lanes a group) on the bucketed engine
+  with its pipeline on and off, each bitwise equal to the host engine and
+  with fewer ``llc_rounds`` launches than the per-group fused engine on
+  the same groups, then a forced ``bucket`` and ``bucket_overflow`` fault
+  on a small case, each leaving the results equal;
 * phase 10, fig. 17's scheduler comparison (``config1``/``moti1`` at the
   ``full`` preset, ``DDR4_2400_32b2r_frfcfs`` against
   ``DDR4_2400_32b2r_squash`` at ``deadline_factor=1.0``, ``hydra`` and
@@ -1153,16 +1164,18 @@ class RoundsCapture:
 
 
 class SyncChecked:
-    """Wraps ``fused._superstep`` where ``drive_lanes_fused`` calls it:
-    each super-step's device work runs under
+    """Wraps ``fused._superstep`` where ``drive_lanes_fused`` calls it (or
+    ``fused._superstep_bucket``, ``drive_lanes_bucketed``'s): each
+    super-step's device work runs under
     ``torch.cuda.set_sync_debug_mode("error")`` (an operation that waits
-    for the card raises); ``drive_lanes_fused``'s one read of the overflow
-    flags per super-step comes after the call, outside it."""
+    for the card raises); the engine's one read per super-step comes after
+    the call, outside it."""
 
-    def __init__(self, fused):
-        self.fused, self.fn = fused, fused._superstep
+    def __init__(self, fused, name: str = "_superstep"):
+        self.fused, self.name = fused, name
+        self.fn = getattr(fused, name)
         self.calls = 0
-        fused._superstep = self
+        setattr(fused, name, self)
 
     def __call__(self, *args, **kw):
         import torch
@@ -1174,7 +1187,7 @@ class SyncChecked:
             torch.cuda.set_sync_debug_mode(0)
 
     def restore(self):
-        self.fused._superstep = self.fn
+        setattr(self.fused, self.name, self.fn)
 
 
 def llc_shaped(rkernel, cfg, knobs, st, line, meta, n_r, stage,
@@ -2106,6 +2119,160 @@ def main() -> int:
         compare(json.loads(json.dumps(system_point(got_f[name]))), want,
                 f"system fused.{name}")
     log(f"[fused] phase 6f: all {len(got_f)} points match the golden")
+
+    # 6b. the test_system spec through exp.run on the bucketed engine
+    os.environ["REPRO_CACHE"] = cache + "_system_bucketed"
+    shutil.rmtree(os.environ["REPRO_CACHE"], ignore_errors=True)
+    plan_b = exp.ExecPlan(**dict(system["plan"], engine="bucketed"))
+    chk = SyncChecked(fused, "_superstep_bucket")
+    fused.reset_counts()
+    fused.reset_phase_times()
+    hist.launches = assign.launches = dense.launches = 0
+    fit.launches = fit_seg.launches = rops.rounds.launches = 0
+    t0 = time.time()
+    rs_b = exp.run(spec, plan=plan_b, device=dev)
+    torch.cuda.synchronize()
+    wall_6b = time.time() - t0
+    chk.restore()
+    counts_6b, split_6b = fused.counts(), fused.phase_times()
+    log(f"[bucketed] phase 6b: exp.run of {len(spec)} points with {plan_b} "
+        f"wall {wall_6b:.1f} s (phase 6, host: {wall_sys:.1f} s; phase 6f, "
+        f"fused: {wall_6f:.1f} s; each from an empty cache); bucketed "
+        f"super-steps {counts_6b['bucket_supersteps']} ({chk.calls} calls "
+        f"under set_sync_debug_mode('error')), escalations "
+        f"{counts_6b['bucket_escalations']}, demoted groups "
+        f"{counts_6b['bucket_demotions']}; phase split "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split_6b.items())
+        + f"; launches llc_rounds {rops.rounds.launches}, kmeans_fit "
+        f"{fit.launches}, kmeans_assign {dense.launches}, ri_histogram "
+        f"{hist.launches}")
+    if counts_6b["bucket_supersteps"] == 0 or rops.rounds.launches <= 0 \
+            or {r["engine"] for r in rs_b.run_report.points.values()} != \
+            {"bucketed"}:
+        raise AssertionError(f"phase 6b did not run on the bucketed engine: "
+                             f"{counts_6b}, {rs_b.run_report.summary()}")
+    got_b = {row["policy"]: row["result"] for row in rs_b.to_rows()}
+    for name, want in system["points"].items():
+        compare(json.loads(json.dumps(system_point(got_b[name]))), want,
+                f"system bucketed.{name}")
+    log(f"[bucketed] phase 6b: all {len(got_b)} points match the golden")
+
+    # 6c. buckets of two groups at full width: the bucketed engine (its
+    # pipeline on and off) against the host engine, and its launches
+    # against the per-group fused engine's, on the same points
+    mixes_6c = (MIX, "moti1")
+    spec6c = exp.ExperimentSpec.grid(config=CONFIG, mix=list(mixes_6c),
+                                     policy=system["policies"],
+                                     params="full")
+    n6c = len(spec6c)
+    log(f"[bucketed] phase 6c: {n6c} points, three lanes a group (every "
+        f"mix keys apart, as the core slots of {list(mixes_6c)} differ; "
+        f"with max_lanes=3 each mix's six policies make two groups of one "
+        f"bucket key)")
+    os.environ["REPRO_CACHE"] = cache + "_sweep"
+    shutil.rmtree(os.environ["REPRO_CACHE"], ignore_errors=True)
+    # the calibration, traces and LERN tables first, so that every leg
+    # below runs on warm artifacts
+    t0 = time.time()
+    with lern.fit_engine_override("bucketed"):
+        d6c = sim.calibrated_deadline(CONFIG, p, dram, device=dev)
+        for m in mixes_6c:
+            art = sim.load_artifacts(CONFIG, m, p)
+            for name in system["policies"]:
+                sim.Lane(CONFIG, m, policies.get(name), p, dram, d6c, art,
+                         device=dev)
+    log(f"[bucketed] phase 6c: artifacts in {time.time() - t0:.1f} s")
+    runs6c, walls6c, launches6c = {}, {}, {}
+    buckets6c = []
+    drive_b = fused.drive_lanes_bucketed
+
+    def record_bucket(groups, *a, **kw):
+        buckets6c.append([f"{g[0].mix}:" + "+".join(
+            lane.policy.name for lane in g) for g in groups])
+        return drive_b(groups, *a, **kw)
+
+    for leg, plan6 in (
+            ("host", dict(engine="host")),
+            ("fused", dict(engine="fused")),
+            ("bucketed, pipeline on", dict(engine="bucketed",
+                                           pipeline=True)),
+            ("bucketed, pipeline off", dict(engine="bucketed",
+                                            pipeline=False))):
+        chk = (SyncChecked(fused, "_superstep_bucket")
+               if plan6["engine"] == "bucketed" else None)
+        buckets6c.clear()
+        fused.drive_lanes_bucketed = record_bucket
+        fused.reset_counts()
+        fused.reset_phase_times()
+        rops.rounds.launches = 0
+        t0 = time.time()
+        rs6 = exp.run(spec6c, plan=exp.ExecPlan(
+            **plan6, cache=False, max_lanes=3, fit_engine="bucketed"),
+            device=dev)
+        torch.cuda.synchronize()
+        walls6c[leg] = time.time() - t0
+        fused.drive_lanes_bucketed = drive_b
+        if chk is not None:
+            chk.restore()
+        launches6c[leg] = rops.rounds.launches
+        runs6c[leg] = [dataclasses.asdict(r) for r in rs6.results()]
+        c6 = fused.counts()
+        log(f"[bucketed] phase 6c {leg}: wall {walls6c[leg]:.1f} s, "
+            f"llc_rounds launches {launches6c[leg]}, counts {c6}"
+            + ("; phase split " + ", ".join(
+                f"{k} {v:.3f}" for k, v in fused.phase_times().items())
+               if chk is not None else ""))
+        if chk is not None:
+            log(f"[bucketed] phase 6c {leg}: buckets {buckets6c}")
+            if (c6["bucket_supersteps"] == 0 or c6["bucket_demotions"]
+                    or max(map(len, buckets6c), default=0) < 2):
+                raise AssertionError(f"phase 6c {leg}: {c6}; every bucket "
+                                     f"holds one group: {buckets6c}")
+    for leg in ("fused", "bucketed, pipeline on", "bucketed, pipeline off"):
+        if runs6c[leg] != runs6c["host"]:
+            raise AssertionError(f"phase 6c: {leg} differs from the host "
+                                 f"engine")
+    for leg in ("bucketed, pipeline on", "bucketed, pipeline off"):
+        if not 0 < launches6c[leg] < launches6c["fused"]:
+            raise AssertionError(
+                f"phase 6c {leg}: {launches6c[leg]} llc_rounds launches, "
+                f"the per-group fused engine {launches6c['fused']}")
+    log(f"[bucketed] phase 6c: {n6c} points bitwise equal to the "
+        f"host engine on every leg; llc_rounds launches bucketed "
+        f"{launches6c['bucketed, pipeline on']} / "
+        f"{launches6c['bucketed, pipeline off']} (pipeline on / off) "
+        f"against the per-group fused engine's "
+        f"{launches6c['fused']}; walls " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls6c.items()))
+    # the forced faults on a small case (two groups of one bucket)
+    small = [sweep.SweepPoint("config1", "moti1", policies.get(n),
+                              sim.SimParams(n_inputs=1, max_epochs=e,
+                                            subsample_target=50_000))
+             for e in (40, 25) for n in ("fifo-nb", "arp-cs-as")]
+    clean = [dataclasses.asdict(r) for r in sweep.run_bucketed(
+        small, cache=False, device=dev)]
+    from repro_torch.exp import faults as faults_mod
+    for site, kind, ladder in (("bucket", "resource", "bucketed->fused"),
+                               ("bucket_overflow", "demote", None)):
+        fused.reset_counts()
+        report = faults_mod.RunReport()
+        with faults_mod.activate(faults_mod.FaultPlan.make(
+                [{"site": site, "kind": kind}])):
+            got = [dataclasses.asdict(r) for r in sweep.run_bucketed(
+                small, cache=False, report=report, device=dev)]
+        degr = [e["ladder"] for e in report.events if e["kind"] == "degrade"]
+        fired = [e for e in report.events
+                 if e["kind"] == "fault" and e["site"] == site]
+        c6 = fused.counts()
+        log(f"[bucketed] phase 6c forced {site} fault: fired {len(fired)}, "
+            f"ladder {degr}, demoted groups {c6['bucket_demotions']}, "
+            f"per-group fused super-steps {c6['supersteps']}; results "
+            f"equal: {got == clean}")
+        walked = (degr == [ladder] if ladder else
+                  not degr and c6["bucket_demotions"] > 0)
+        if got != clean or not fired or not walked:
+            raise AssertionError(f"phase 6c forced {site} fault: {degr}, "
+                                 f"{c6}, equal {got == clean}")
 
     # 10. fig. 17's scheduler comparison on the scheduled DRAM backend
     sched = json.load(open(SCHED))

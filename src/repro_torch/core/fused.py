@@ -32,11 +32,22 @@ largest round bucket; past that it replays the stretch on the host path
 (which chunks hot sets) and goes host-sticky after two overflows in a row.
 ``sweep.simulate_group(engine="fused")`` routes a geometry batch here;
 ``sim.drive_lane`` stays the oracle.
+
+Whole sweeps (``drive_lanes_bucketed``, behind ``sweep.run_bucketed``):
+lane groups with equal ``bucket_key`` run as ONE flat lane batch of G*L
+lanes -- the group-constant consts broadcast to the lanes, the trace and
+stream arrays read by (group, element) gathers -- so an epoch is one
+``llc_rounds`` launch for the whole bucket.  There an overflowing lane
+freezes on its committed carry (the freeze above), the shared capacity
+escalates, and past the cap only the offending group leaves through
+``drive_lanes_fused``.  Results equal the per-group engines bitwise
+(tests/test_torch_bucketed.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -62,11 +73,25 @@ SPARSE_CAP = int(os.environ.get("REPRO_FUSED_SPARSE_CAP", "256"))
 
 _HUGE_KEY = 1 << 62
 
-# Counts of drive_lanes_fused's paths since the last reset: super-steps
-# committed on the device, capacity escalations, host stretches and their
-# epochs.
+# The bucketed engine's pipeline: super-step N+1 is enqueued before N's
+# write-back, which reads N's outputs from pinned buffers behind an event
+# (off = one super-step at a time, the reference path the tests pin).
+PIPELINE_DEFAULT = os.environ.get("REPRO_BUCKET_PIPELINE", "1") != "0"
+
+# Counts since the last reset: drive_lanes_fused's super-steps committed on
+# the device, capacity escalations, host stretches and their epochs; the
+# bucketed engine's super-steps, escalations and demoted groups.
 _COUNTS = {"supersteps": 0, "escalations": 0, "host_stretches": 0,
-           "host_epochs": 0}
+           "host_epochs": 0, "bucket_supersteps": 0,
+           "bucket_escalations": 0, "bucket_demotions": 0}
+
+# Seconds of the bucketed engine, accumulated across calls: stage_s
+# (staging and the carry, host clock), dispatch_s (enqueueing super-steps,
+# host clock; on the CPU the work itself), device_s (CUDA events from a
+# super-step's first op to the end of its copy to the host; 0 on the CPU)
+# and writeback_s (histories and carry into the Lanes, host clock).
+_PHASES = {"stage_s": 0.0, "dispatch_s": 0.0, "device_s": 0.0,
+           "writeback_s": 0.0}
 
 
 def reset_counts() -> None:
@@ -76,6 +101,15 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return dict(_COUNTS)
+
+
+def reset_phase_times() -> None:
+    for k in _PHASES:
+        _PHASES[k] = 0.0
+
+
+def phase_times() -> dict:
+    return dict(_PHASES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +132,9 @@ class FusedDims:
 class SharedConsts(NamedTuple):
     """Device constants shared by every lane of the batch: arrays, float64
     0-d tensors (so that an int64 operand promotes to float64, never to
-    torch's float32 default) and plain ints."""
+    torch's float32 default) and plain ints.  In a bucket's flat batch
+    (``gid`` set) every scalar is a per-lane tensor and the arrays carry a
+    leading group axis."""
     line: torch.Tensor       # i32 [M] accel trace lines
     write: torch.Tensor      # bool [M]
     layer: torch.Tensor      # i32 [M]
@@ -129,8 +165,13 @@ class SharedConsts(NamedTuple):
     w_cap_dram_prio: torch.Tensor   # f64 [] (w_cap * dram_lat) * prio_cap
     w_dram25: torch.Tensor   # f64 [] 25 * dram_lat
     mlp_et: torch.Tensor     # f64 [] mlp_accel * et
-    sd_timing: Tuple[int, ...]     # dramsched.timing_tuple (sched only)
+    sd_timing: Tuple[Tuple[int, ...], ...]  # dramsched.timing_tuple
+    #                          of each scheduled model (() = fluid DRAM)
     et_i: torch.Tensor       # i64 [L] epoch_cycles as an integer
+    # a bucket's flat lane batch (``_bucket_consts``): the scalars above
+    # are [L] tensors, line/write/layer/streams [G, ...]
+    sd_lane: Optional[torch.Tensor] = None  # i64 [L] index into sd_timing
+    gid: Optional[torch.Tensor] = None      # i64 [L] each lane's group
 
 
 class LaneConsts(NamedTuple):
@@ -270,10 +311,16 @@ def _pack_meta(is_accel, write, hint, prefetch, dlok, src: int):
             | (src << llc_mod.M_SRC_SHIFT)).to(torch.int32)
 
 
-def _gather(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``a[idx]`` with ``idx`` clipped into range (a clipped slot is always
-    behind a validity mask)."""
-    return a[idx.clamp(0, a.shape[-1] - 1)]
+def _rows(sh: SharedConsts, a: torch.Tensor,
+          idx: torch.Tensor) -> torch.Tensor:
+    """``a[idx]`` of a staged array, ``idx`` [L, ...] clipped into range (a
+    clipped slot is always behind a validity mask).  In a bucket ``a`` has
+    a leading group axis and each lane reads its own group's row: the same
+    elements the group's own batch reads."""
+    idx = idx.clamp(0, a.shape[-1] - 1)
+    if sh.gid is None:
+        return a[idx]
+    return a[sh.gid.view((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
 def _build_rounds_device(dims: FusedDims, sh: SharedConsts, lc: LaneConsts,
@@ -305,11 +352,11 @@ def _build_rounds_device(dims: FusedDims, sh: SharedConsts, lc: LaneConsts,
     lane = torch.arange(n_lanes, device=dev)[:, None]
     ia = torch.arange(dims.accel_cap, dtype=torch.int64, device=dev)[None]
     when_a = (ia << WHEN_BITS) // n_a.clamp(min=1)[:, None]
-    idx_a = (pos[:, None] + ia).clamp(0, sh.line.shape[0] - 1)
+    idx_a = (pos[:, None] + ia).clamp(0, sh.line.shape[-1] - 1)
     valid_a = ia < n_a[:, None]
-    line_a = sh.line[idx_a]
-    write_a = sh.write[idx_a]
-    layer_now = _gather(sh.layer, pos)
+    line_a = _rows(sh, sh.line, idx_a)
+    write_a = _rows(sh, sh.write, idx_a)
+    layer_now = _rows(sh, sh.layer, pos)
     # per-event bypass hint: LERN clusters x epoch thresholds, or AFRp
     cold_now = lc.cold[lane[:, 0], layer_now.long()]
     rc_a = lc.rc[lane, idx_a]
@@ -332,13 +379,13 @@ def _build_rounds_device(dims: FusedDims, sh: SharedConsts, lc: LaneConsts,
         lines.append(line_a + 1)
         metas.append(_pack_meta(true_a, false_a, false_a, true_a, false_a, 0))
         valids.append(valid_a & lc.dpcp[:, None])
-    wmax = sh.streams.shape[1]
+    wmax = sh.streams.shape[-1]
     for k, cap in enumerate(dims.core_caps):
         jk = torch.arange(cap, dtype=torch.int64, device=dev)[None]
         nk = n_c[:, k:k + 1]
         whens.append((jk << WHEN_BITS) // nk.clamp(min=1))
         idx_k = (stream_pos[:, k:k + 1] + jk).clamp(0, wmax - 1)
-        lines.append(sh.streams[k][idx_k])
+        lines.append(_rows(sh, sh.streams[..., k, :], idx_k))
         fk = torch.zeros_like(jk, dtype=torch.bool).expand(n_lanes, cap)
         metas.append(_pack_meta(fk, lc.writes[lane, k, idx_k], fk, fk, fk, k))
         valids.append(jk < nk)
@@ -513,8 +560,8 @@ def _begin(dims: FusedDims, sh: SharedConsts, stop_epoch: int,
     if dims.sched is not None:
         ns = dims.sched.n_samples
         si = torch.arange(ns, dtype=i64, device=n_a.device)[None]
-        samp = _gather(sh.line, cy.pos[:, None] + (si * n_a[:, None]) // ns
-                       ).to(i64)
+        samp = _rows(sh, sh.line,
+                     cy.pos[:, None] + (si * n_a[:, None]) // ns).to(i64)
     return _Begin(step_active=step_active, arrived=arrived,
                   accel_prio=accel_prio, n_a=n_a, n_c=n_c, shed=shed,
                   ri_th=ri_th, rc_th=rc_th, special=special,
@@ -570,11 +617,19 @@ def _finish(dims: FusedDims, sh: SharedConsts, lc: LaneConsts,
         # pre-update amal, the requirement just appended to history)
         ma_hat_d = _div(sh.mlp_et, torch.clamp(cy.amal, min=1.0))
         urgent = accel_prio | (lc.hydra & (ma_hat_d < bg.req_out))
-        (num_a, den_a, num_c, den_c, bank_row2, bank_queue2,
-         bank_rr2) = dramsched.epoch_compute(
-            torch, dims.sched, sh.sd_timing, cy.bank_row, cy.bank_queue,
+        # a bucket may mix models of one geometry (FR-FCFS and SQUASH):
+        # each lane takes the results of its own model's timings
+        outs = [dramsched.epoch_compute(
+            torch, dims.sched, timing, cy.bank_row, cy.bank_queue,
             cy.bank_rr, bg.samp, am, cm, pf_fills, urgent, cy.epoch,
-            sh.et_i)
+            sh.et_i) for timing in sh.sd_timing]
+        res = outs[0]
+        for k, other in enumerate(outs[1:], 1):
+            pick = sh.sd_lane == k
+            res = tuple(torch.where(pick.view((-1,) + (1,) * (a.dim() - 1)),
+                                    b, a) for a, b in zip(res, other))
+        (num_a, den_a, num_c, den_c, bank_row2, bank_queue2,
+         bank_rr2) = res
         # num/den are exact in f64 (far below 2^53), so the division is
         # bitwise the host's float(num) / float(den)
         w_dram_a = torch.minimum(_div(_f64(num_a), _f64(den_a)),
@@ -712,9 +767,13 @@ def _i32(a: np.ndarray) -> np.ndarray:
 
 class _Staged:
     """What ``drive_lanes_fused`` holds between super-steps: the static dims,
-    the shared constants and the per-lane tables, on the lanes' device."""
+    the shared constants and the per-lane tables, on the lanes' device.
+    ``pads`` (``bucket_pads``) sizes the arrays to a bucket's maxima so
+    that the groups' arrays stack; ``stale`` marks tables that an online
+    retrain swapped (the staging cache then stages afresh)."""
 
-    def __init__(self, lanes: List[Lane], k_epochs: int, max_rounds: int):
+    def __init__(self, lanes: List[Lane], k_epochs: int, max_rounds: int,
+                 pads: Optional[Tuple[int, int, int]] = None):
         lane0 = lanes[0]
         dev = self.device = lane0.device
         p, dram, et = lane0.p, lane0.dram, lane0.et
@@ -739,15 +798,15 @@ class _Staged:
 
         tr = lane0.tr
         m = tr.num_accesses
-        wmax = max([s.shape[0] for s in lane0.streams] or [1])
+        m_pad, wmax, n_layers = pads or bucket_pads([lanes])
         streams = np.zeros((n_cores, wmax), np.int32)
         for k, s in enumerate(lane0.streams):
             streams[k, :s.shape[0]] = _i32(s)
-        line = np.zeros(max(m, 1), np.int32)
+        line = np.zeros(max(m_pad, 1), np.int32)
         line[:m] = _i32(tr.line)
-        write = np.zeros(max(m, 1), bool)
+        write = np.zeros(max(m_pad, 1), bool)
         write[:m] = np.asarray(tr.write, bool)
-        layer = np.zeros(max(m, 1), np.int32)
+        layer = np.zeros(max(m_pad, 1), np.int32)
         layer[:m] = np.asarray(tr.layer, np.int32)
         dram_denom, w_dram25 = dram_mod.queue_delay_consts(dram, et)
 
@@ -779,19 +838,21 @@ class _Staged:
             w_cap_dram=f64(p.w_cap * dram.latency_cycles),
             w_cap_dram_prio=f64(p.w_cap * dram.latency_cycles * p.prio_cap),
             w_dram25=f64(w_dram25), mlp_et=f64(p.mlp_accel * et),
-            sd_timing=(dramsched.timing_tuple(sched) if sched is not None
-                       else ()),
+            sd_timing=((dramsched.timing_tuple(sched),)
+                       if sched is not None else ()),
             et_i=torch.full((len(lanes),), int(p.epoch_cycles),
                             dtype=torch.int64, device=dev))
         self._wmax = wmax
         self._m = m
-        self._n_layers = len(tr.layer_names)
+        self._m_pad = max(m_pad, 1)
+        self._n_layers = n_layers
+        self.stale = False
         self.lc = self._stage_lanes(lanes)
 
     def _stage_lanes(self, lanes: List[Lane]) -> LaneConsts:
         dev = self.device
         n_l, m, n_c = len(lanes), self._m, len(lanes[0].profiles)
-        m_pad = max(m, 1)
+        m_pad = self._m_pad
         rc = np.zeros((n_l, m_pad), np.int8)
         ri = np.zeros((n_l, m_pad), np.int8)
         cold = np.zeros((n_l, max(self._n_layers, 1)))
@@ -857,12 +918,28 @@ class _Staged:
     def refresh_clusters(self, lanes: List[Lane]) -> None:
         """Re-upload per-lane cluster tables (after an online retrain)."""
         self.lc = self._stage_lanes(lanes)
+        self.stale = True
+
+
+def bucket_pads(groups: List[List[Lane]]) -> Tuple[int, int, int]:
+    """Common staging pads (trace length, stream length, layer count) of a
+    bucket: every group's arrays are sized to the bucket's maxima so that
+    they stack along a leading group axis."""
+    return (max(g[0].tr.num_accesses for g in groups),
+            max(max([s.shape[0] for s in g[0].streams] or [1])
+                for g in groups),
+            max(len(g[0].tr.layer_names) for g in groups))
 
 
 def stage_group(lanes: List[Lane], k_epochs: int = DEFAULT_SUPERSTEP,
-                max_rounds: int = DEFAULT_MAX_ROUNDS) -> _Staged:
-    """One group's staged device constants."""
-    return _Staged(lanes, k_epochs, max_rounds)
+                max_rounds: int = DEFAULT_MAX_ROUNDS,
+                pads: Optional[Tuple[int, int, int]] = None) -> _Staged:
+    """One group's staged device constants (what the sweep's staging cache
+    holds); the time lands in the ``stage_s`` phase."""
+    t0 = time.perf_counter()
+    staged = _Staged(lanes, k_epochs, max_rounds, pads=pads)
+    _PHASES["stage_s"] += time.perf_counter() - t0
+    return staged
 
 
 def _init_carry(lanes: List[Lane], states: llc_mod.LLCState,
@@ -1106,3 +1183,332 @@ def drive_lanes_fused(lanes: List[Lane], states=None,
                 retrained = True
         if retrained:
             staged.refresh_clusters(lanes)
+
+
+# ---------------------------------------------------------------------------
+# whole-sweep bucketing: the lane groups of a bucket as one flat lane batch
+# ---------------------------------------------------------------------------
+def bucket_key(lanes: List[Lane]) -> Tuple:
+    """Static-compatibility key for ``drive_lanes_bucketed``: lane groups
+    may share one flat batch iff every static ``FusedDims`` field agrees --
+    LLC geometry, lane count, core slot layout, accel capacity, the DPCP
+    prefetch segment, input count, the occupancy record and the scheduled
+    DRAM geometry.  Traces, streams, knobs, deadlines, max_epochs and the
+    DRAM timings ride as data."""
+    lane0 = lanes[0]
+    from . import cores as cores_mod
+    core_caps = tuple(
+        max(int(cores_mod.epoch_accesses(pr, pr.ipc0, lane0.et)), 0)
+        for pr in lane0.profiles)
+    sched = (dramsched.sched_dims(lane0.dram)
+             if isinstance(lane0.dram, dram_mod.SchedDramModel) else None)
+    return (llc_mod.geometry_key(lane0.llc_cfg), len(lanes),
+            lane0.n_cores, core_caps, int(lane0.p.accel_epoch_cap),
+            any(lane.policy.dpcp for lane in lanes),
+            int(lane0.p.n_inputs), bool(lane0.p.record_occupancy), sched)
+
+
+# SharedConsts arrays that keep their leading group axis in a bucket (read
+# by (group, element) gathers, ``_rows``); every other leaf is a group
+# constant that becomes a per-lane tensor
+_SH_GROUP_ARRAYS = frozenset({"line", "write", "layer", "streams"})
+
+
+def _bucket_consts(shs: List[SharedConsts], n_lanes: int) -> SharedConsts:
+    """The SharedConsts of a bucket's flat (G*L) lane batch: the trace and
+    stream arrays stacked [G, ...], each group constant broadcast to its
+    lanes by one gather, the scheduled-DRAM timings as a table of the
+    distinct ones with a per-lane index."""
+    dev = shs[0].line.device
+    gid = torch.arange(len(shs), device=dev).repeat_interleave(n_lanes)
+    out = {}
+    for f in SharedConsts._fields:
+        vals = [getattr(s, f) for s in shs]
+        if f in ("sd_timing", "sd_lane", "gid"):
+            continue
+        if f in _SH_GROUP_ARRAYS:
+            out[f] = torch.stack(vals)
+        elif f == "et_i":
+            out[f] = torch.cat(vals)
+        elif isinstance(vals[0], torch.Tensor):
+            out[f] = torch.stack(vals)[gid]
+        else:
+            out[f] = torch.tensor(vals, dtype=torch.int64, device=dev)[gid]
+    timings = list(dict.fromkeys(t for s in shs for t in s.sd_timing))
+    sd_lane = None
+    if len(timings) > 1:
+        sd_lane = torch.tensor([timings.index(s.sd_timing[0]) for s in shs],
+                               device=dev)[gid]
+    return SharedConsts(**out, sd_timing=tuple(timings), sd_lane=sd_lane,
+                        gid=gid)
+
+
+def _stack_trees(trees):
+    """Concatenate same-typed NamedTuples of [L, ...] tensors (LaneConsts,
+    FusedCarry, LLCState, LaneKnobs) leaf by leaf along the lane axis."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(trees)
+    return type(first)(*(_stack_trees(list(xs)) for xs in zip(*trees)))
+
+
+def _superstep_bucket(dims: FusedDims, sh: SharedConsts, lc: LaneConsts,
+                      carry: FusedCarry, stop: torch.Tensor):
+    """K epochs of a bucket's flat lane batch, enqueued with no read by the
+    host: one ``llc_rounds`` launch an epoch for all G*L lanes.  The kernel
+    updates the LLC state in place -- the carry passed in is not used
+    again (an overflowing lane freezes on its committed carry instead of
+    rolling back).  Returns (carry, StepOut stacked [K, G*L])."""
+    cy = carry
+    outs = []
+    for _ in range(dims.k_epochs):
+        cy, out = _epoch_step(dims, sh, stop, lc, cy)
+        outs.append(out)
+    return cy, StepOut(*(torch.stack(f) for f in zip(*outs)))
+
+
+def _fetch(ys: StepOut):
+    """Enqueue the copy of a super-step's outputs to the host: on the card
+    into pinned buffers, behind the super-step in stream order, with an
+    event recorded after it; on the CPU the outputs are the host's.
+    Returns (host StepOut, event or None)."""
+    if not ys.active.is_cuda:
+        return ys, None
+    host = StepOut(*(torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                     .copy_(y, non_blocking=True) for y in ys))
+    done = torch.cuda.Event(enable_timing=True)
+    done.record()
+    return host, done
+
+
+def _lanes_slice(tup, lo: int, hi: int, axis: int = 0):
+    return type(tup)(*(None if x is None else x[(slice(None),) * axis
+                                               + (slice(lo, hi),)]
+                       for x in tup))
+
+
+def one_card(devices: Optional[int]) -> None:
+    """The bucketed engine's ``devices``: None or 1 is the one card."""
+    if devices is not None and devices > 1:
+        raise NotImplementedError(
+            f"devices={devices}: the bucketed engine runs on one card; "
+            "sharding its groups over cards is ROADMAP.md Queue 1 item 14")
+
+
+def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
+                         k_epochs: int = DEFAULT_SUPERSTEP,
+                         max_rounds: int = DEFAULT_MAX_ROUNDS,
+                         devices: Optional[int] = None,
+                         staged: Optional[List[_Staged]] = None,
+                         pipeline: Optional[bool] = None) -> None:
+    """Drive lane groups of equal ``bucket_key`` to completion as ONE flat
+    lane batch of G*L lanes on the lanes' device: one ``llc_rounds``
+    launch an epoch for the whole bucket.
+
+    Each group's results equal ``drive_lanes_fused`` on the group alone
+    bitwise (tests/test_torch_bucketed.py): every lane computes the same
+    values as in its group's batch, and exactly the epochs
+    ``drive_lanes_fused`` would commit are committed.  Progress is tracked
+    from the super-steps' outputs alone -- one host read a super-step --
+    and the carry stays on the device until the run ends or a group
+    demotes.
+    With ``pipeline`` (default ``REPRO_BUCKET_PIPELINE``, on) and no
+    online-LERN lane, super-step N+1 is enqueued before N's write-back,
+    which reads N's outputs from pinned buffers behind an event; stream
+    order keeps the carry's hand-over exact (the JAX package donates the
+    carry instead).
+
+    Overflow never rolls back: an overflowing lane freezes on its committed
+    carry; the shared capacity doubles first (up to ``MAX_ROUNDS_CAP``),
+    then only the offending groups leave, each from its frozen carry
+    through ``drive_lanes_fused`` (host fallback and all).  ``devices`` of
+    None or 1 runs on the one card; more raises ``NotImplementedError``
+    before any work.  ``staged`` reuses staged constants (the sweep's
+    staging cache), built with this bucket's ``bucket_pads``."""
+    one_card(devices)
+    assert groups and len({bucket_key(g) for g in groups}) == 1
+    for g in groups:
+        assert all(lane_supported(lane) for lane in g)
+    n_groups, n_l = len(groups), len(groups[0])
+    dev = groups[0][0].device
+    max_epochs = [int(g[0].p.max_epochs) for g in groups]
+    if pipeline is None:
+        pipeline = PIPELINE_DEFAULT
+    if staged is None:
+        pads = bucket_pads(groups)
+        staged = [stage_group(g, k_epochs, max_rounds, pads=pads)
+                  for g in groups]
+    t0 = time.perf_counter()
+    dims = staged[0].dims
+    # bucket-mates agree on every static field but the incidental lane0
+    # LLCConfig of ``cfg``: behaviour knobs ride as data, only the geometry
+    # must match (mixed policy rosters chunked by max_lanes hit this)
+    assert all(dataclasses.replace(s.dims, cfg=dims.cfg) == dims
+               and llc_mod.geometry_key(s.dims.cfg)
+               == llc_mod.geometry_key(dims.cfg) for s in staged)
+    sh = _bucket_consts([s.sh for s in staged], n_l)
+    lc = _stack_trees([s.lc for s in staged])
+    if states is None:
+        st = llc_mod.stack_states(dims.cfg, n_groups * n_l, dev)
+    else:
+        st = _stack_trees(list(states))
+    carry = _init_carry([lane for g in groups for lane in g], st,
+                        dims.n_inputs)
+    _PHASES["stage_s"] += time.perf_counter() - t0
+    # enqueueing ahead needs constant stop epochs: an online-LERN boundary
+    # needs a host refit (and a table upload) before the next super-step
+    speculate = pipeline and not any(
+        lane._retrain_every is not None for g in groups for lane in g)
+
+    # progress tracked here, fed by the fetched outputs: the Lanes'
+    # scalars are stale until the final carry write-back
+    epochs = [[lane.epoch for lane in g] for g in groups]
+    alive = [[lane.active for lane in g] for g in groups]
+    live = [True] * n_groups       # False once demoted to drive_lanes_fused
+    # lanes that reached a retrain boundary whose refit has not run yet
+    # (deferred while their group has an overflow to resolve: the frozen
+    # lane re-attempts its epoch under the old tables first)
+    due = [set() for _ in range(n_groups)]
+
+    def group_active(i: int) -> bool:
+        return live[i] and any(alive[i])
+
+    def next_stop(i: int) -> int:
+        if not group_active(i):
+            return 0
+        stop = max_epochs[i]
+        for j, lane in enumerate(groups[i]):
+            r = lane._retrain_every
+            if alive[i][j] and r is not None:
+                e = epochs[i][j]
+                # a due lane holds at its boundary until the refit runs
+                stop = min(stop, e if j in due[i] else e + r - e % r)
+        return stop
+
+    def dispatch():
+        nonlocal carry
+        stops = [next_stop(i) for i in range(n_groups)]
+        before = [list(e) for e in epochs]
+        t = time.perf_counter()
+        stop = torch.tensor(np.repeat(stops, n_l), dtype=torch.int64,
+                            device=dev)
+        start = None
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        carry, ys = _superstep_bucket(dims, sh, lc, carry, stop)
+        host, done = _fetch(ys)
+        _COUNTS["bucket_supersteps"] += 1
+        _PHASES["dispatch_s"] += time.perf_counter() - t
+        return host, start, done, before
+
+    inflight: list = []
+    depth = 2 if speculate else 1
+    overflow_pending: set = set()
+    from ..exp import faults as _flt
+    while True:
+        # fault-injection site "bucket_overflow": force the freeze/demote
+        # machinery as if every active group had overflowed at the cap
+        # (checked before dispatch so it bites on workloads that finish
+        # inside the first super-step); each group leaves from its
+        # committed carry and finishes under drive_lanes_fused
+        if any(group_active(i) for i in range(n_groups)):
+            if _flt.fire("bucket_overflow", key=f"g{n_groups}") is not None:
+                dims = dataclasses.replace(dims, max_rounds=MAX_ROUNDS_CAP)
+                overflow_pending.update(
+                    i for i in range(n_groups) if group_active(i))
+        while (not overflow_pending and len(inflight) < depth
+               and any(group_active(i) for i in range(n_groups))):
+            inflight.append(dispatch())
+            if not speculate:
+                break
+        if not inflight:
+            if not overflow_pending:
+                break
+            # every super-step is written back: escalate the shared
+            # capacity first (the frozen lanes re-attempt their epoch) ...
+            if dims.max_rounds < MAX_ROUNDS_CAP:
+                dims = dataclasses.replace(
+                    dims, max_rounds=min(dims.max_rounds * 2,
+                                         MAX_ROUNDS_CAP))
+                carry = carry._replace(
+                    overflow=torch.zeros_like(carry.overflow))
+                overflow_pending.clear()
+                _COUNTS["bucket_escalations"] += 1
+                continue
+            # ... and past the cap demote only the offending groups: write
+            # their carry back and hand them to drive_lanes_fused from
+            # their frozen state
+            host_c = _numpy(carry._replace(st=None))
+            for i in sorted(overflow_pending):
+                if not live[i]:
+                    continue
+                live[i] = False
+                lo, hi = i * n_l, (i + 1) * n_l
+                _write_back_carry(groups[i], _lanes_slice(host_c, lo, hi),
+                                  skip=[False] * n_l)
+                # a deferred refit touches only the due lane's own tables
+                # (it holds at its boundary): run it before the replay
+                for j in sorted(due[i]):
+                    groups[i][j]._online_retrain()
+                due[i].clear()
+                st_i = llc_mod.LLCState(*(x[lo:hi].clone()
+                                          for x in carry.st))
+                _COUNTS["bucket_demotions"] += 1
+                drive_lanes_fused(groups[i], states=st_i,
+                                  k_epochs=dims.k_epochs,
+                                  max_rounds=dims.max_rounds)
+            dead = torch.tensor(np.repeat([not a for a in live], n_l),
+                                device=dev)
+            carry = carry._replace(
+                active=carry.active & ~dead,
+                overflow=torch.zeros_like(carry.overflow))
+            overflow_pending.clear()
+            continue
+        host, start, done, before = inflight.pop(0)
+        if done is not None:
+            done.synchronize()     # the one read of the super-step
+            _PHASES["device_s"] += start.elapsed_time(done) / 1e3
+        t = time.perf_counter()
+        y = _numpy(host)
+        for i in range(n_groups):
+            if not live[i]:
+                continue
+            y_i = _lanes_slice(y, i * n_l, (i + 1) * n_l, axis=1)
+            _write_back_steps(groups[i], y_i)
+            for j in range(n_l):
+                epochs[i][j] += int(y_i.active[:, j].sum())
+                alive[i][j] = bool(y_i.alive[-1, j])
+                r = groups[i][j]._retrain_every
+                if (r is not None and epochs[i][j] > before[i][j]
+                        and epochs[i][j] % r == 0):
+                    due[i].add(j)
+            if y_i.ovf[-1].any():
+                overflow_pending.add(i)
+        _PHASES["writeback_s"] += time.perf_counter() - t
+        # online-LERN boundaries land at the super-step edge per group
+        # (next_stop): run the refits and upload that group's tables; a
+        # group with an unresolved overflow defers
+        refreshed = False
+        for i in range(n_groups):
+            if not live[i] or i in overflow_pending or not due[i]:
+                continue
+            for j in sorted(due[i]):
+                groups[i][j]._online_retrain()
+            due[i].clear()
+            t = time.perf_counter()
+            staged[i].refresh_clusters(groups[i])
+            refreshed = True
+            _PHASES["stage_s"] += time.perf_counter() - t
+        if refreshed:
+            lc = _stack_trees([s.lc for s in staged])
+    # one write-back of the carry's scalars: the histories landed super-step
+    # by super-step, and demoted groups were written back at demotion
+    t = time.perf_counter()
+    host_c = _numpy(carry._replace(st=None))
+    for i in range(n_groups):
+        if live[i]:
+            _write_back_carry(groups[i],
+                              _lanes_slice(host_c, i * n_l, (i + 1) * n_l),
+                              skip=[False] * n_l)
+    _PHASES["writeback_s"] += time.perf_counter() - t

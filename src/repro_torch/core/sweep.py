@@ -11,18 +11,30 @@ x DRAM/LLC variants -- and this module batches it at two levels:
   loop per policy.  Lanes whose LLC geometry diverges are partitioned
   into geometry-compatible sub-batches.  Results equal the sequential
   ``sim.drive_lane`` bitwise.
-* **Across groups** ``map_points`` runs the groups in turn, with the sim
-  disk cache as the dedup layer: cached points are skipped up front,
-  duplicate points are computed once, and finished groups are written
-  back with atomic renames.
+* **Across groups, on the device** ``run_bucketed`` / ``simulate_bucket``
+  bucket whole groups by the fused engine's static shape
+  (``fused.bucket_key``) and drive each bucket as one flat lane batch
+  (``fused.drive_lanes_bucketed``): one ``llc_rounds`` launch an epoch for
+  every group of the bucket.  Results equal per-group ``simulate_group``
+  bitwise (tests/test_torch_bucketed.py).  A bucket that fails degradably
+  (an injected fault, the card out of memory) walks the ladder bucketed ->
+  per-group fused -> host, recomputing the groups from fresh lanes.
+* **Across groups, in turn** ``map_points`` runs the groups one after the
+  other.  Both share the front half (``_plan_tasks``): the sim disk cache
+  as the dedup layer (cached points are skipped up front, duplicate
+  points are computed once, finished groups are written back with atomic
+  renames) and the deadline calibrations, one per (config, params, dram).
 
 ``engine="fused"`` drives each geometry batch through the device-resident
 epoch engine (``core/fused.py``): integer stats bitwise, floats within
-rtol 1e-6 of the host loop, so the engine is a speed switch.
+rtol 1e-6 of the host loop, so the engine is a speed switch.  The
+bucketed engine is a plan-level engine (``exp.ExecPlan``):
+``simulate_group`` and ``map_points`` reject it as an unknown engine, as
+the JAX package's do.
 
-Not ported yet (ROADMAP.md Queue 1): the geometry-bucketed whole-sweep
-engine (item 10b) and the spawn process pool with its retry, respawn and
-watchdog (item 11).  Asking for them raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md Queue 1): the spawn process pool with its
+retry, respawn and watchdog (item 11), and sharding a bucket's groups over
+several cards (item 14).  Asking for them raises ``NotImplementedError``.
 
 Every entry point takes ``device=`` (default: the card) for the LLC
 state and the LERN fits.
@@ -30,9 +42,11 @@ state and the LERN fits.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +60,15 @@ from .policies import Policy
 
 # Default lane width of one lane-batched round loop.
 MAX_LANES = 4
+# Groups per bucketed lane batch: each group's trace and streams are staged
+# apart along the group axis, so a cap bounds the staged working set.
+BUCKET_GROUPS = int(os.environ.get("REPRO_BUCKET_GROUPS", "16"))
+# Staged groups (``fused._Staged``) kept across ``simulate_bucket`` calls,
+# least recently used first out: repeated sweeps over the same points skip
+# the upload.  Entries whose tables an online-LERN retrain swapped are
+# stale and stage afresh.
+STAGE_CACHE_CAP = int(os.environ.get("REPRO_STAGE_CACHE", "32"))
+_STAGE_CACHE: "OrderedDict[Tuple, object]" = OrderedDict()
 # A failing group task is retried TASK_RETRIES times with exponential
 # backoff (base RETRY_BACKOFF seconds, doubled per attempt, capped at 5 s)
 # before a last attempt on the host engine.
@@ -62,11 +85,8 @@ def _faults():
 
 
 def _check_engine(engine: str) -> None:
-    if engine == "bucketed":
-        raise NotImplementedError(
-            "engine='bucketed': the geometry-bucketed whole-sweep engine is "
-            "not ported yet (ROADMAP.md Queue 1 item 10b); use "
-            "engine='fused' or 'host'")
+    """A per-group engine name; ``"bucketed"`` is a plan-level engine
+    (``run_bucketed``), unknown here as in the JAX package."""
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
 
@@ -117,8 +137,9 @@ def simulate_group(config: str, mix: str, pols: Sequence[Policy],
     are bitwise equal on either engine, and on the card the fused engine
     is the slower one (its host dispatch of ~300 small ops an epoch
     against one round-loop launch an epoch on the host engine; PERF.md
-    section 5), so the port keeps the faster route until the bucketed
-    engine batches the fused one."""
+    section 5), so a group run on its own keeps the faster route.  Whole
+    sweeps batch the fused engine across groups through ``run_bucketed``
+    (``exp.ExecPlan``'s default with ``jobs=1``)."""
     _check_engine(engine)
     dev = _device.resolve(device)
     p = params or sim.SimParams()
@@ -146,9 +167,7 @@ def simulate_group(config: str, mix: str, pols: Sequence[Policy],
 def _use_fused(batch: List[sim.Lane], engine: str) -> bool:
     """Whether a geometry batch runs on the fused engine: ``"fused"``
     demands it (and raises for a batch it cannot take), ``"auto"`` takes
-    it for an eligible batch unless ``REPRO_FUSED=0``, ``"host"`` never.
-    (``exp.ExecPlan`` resolves ``"auto"`` to ``"host"`` before it gets
-    here until the bucketed engine is ported.)"""
+    it for an eligible batch unless ``REPRO_FUSED=0``, ``"host"`` never."""
     if engine == "host":
         return False
     if engine == "auto" and os.environ.get("REPRO_FUSED", "1") == "0":
@@ -225,11 +244,197 @@ def _drive_lanes(lanes: List[sim.Lane], dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# whole sweep on the device: buckets of groups as one flat lane batch
+# ---------------------------------------------------------------------------
+def _artifact_digest(batch: List[sim.Lane]) -> str:
+    """A digest of what a group's lanes were built from beyond their point:
+    the trace and each lane's LERN tables (two synthetic traces of one
+    point stage apart)."""
+    h = hashlib.blake2b(digest_size=16)
+
+    def add(a) -> None:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.reshape(-1).view(np.uint8))
+
+    tr = batch[0].tr
+    for a in (tr.line, tr.write, tr.layer):
+        add(a)
+    for lane in batch:
+        if lane.clusters is None:
+            h.update(b"-")
+        else:
+            for k in ("rc", "ri", "cold_center"):
+                add(lane.clusters[k])
+    return h.hexdigest()
+
+
+def _staged_for(batch_list: List[List[sim.Lane]]):
+    """Staged device constants for one bucket slab, through the module
+    staging cache (least recently used out past ``STAGE_CACHE_CAP``).  The
+    key is everything that fixes the staged buffers: the bucket's static
+    shape, each group's point (config, mix, policy roster, params and DRAM
+    model, deadline), the slab's pads, the super-step length and round
+    capacity, the lanes' device and the digest of their trace and LERN
+    tables.  A cached entry whose tables an online-LERN retrain swapped
+    (``stale``) stages afresh."""
+    from . import fused
+    if _faults().fire("stage_evict", key=f"{len(batch_list)}g") is not None:
+        # injected eviction of the staged buffers: everything stages
+        # afresh from the host copies (a cost, never a different result)
+        _STAGE_CACHE.clear()
+    pads = fused.bucket_pads(batch_list)
+    staged = []
+    for batch in batch_list:
+        lane0 = batch[0]
+        key = (fused.bucket_key(batch), lane0.config, lane0.mix,
+               tuple(repr(lane.policy) for lane in batch),
+               _params_key(lane0.p, lane0.dram), float(lane0.deadline),
+               pads, fused.DEFAULT_SUPERSTEP, fused.DEFAULT_MAX_ROUNDS,
+               str(lane0.device), _artifact_digest(batch))
+        hit = _STAGE_CACHE.get(key)
+        if hit is None or hit.stale:
+            hit = fused.stage_group(batch, pads=pads)
+            _STAGE_CACHE[key] = hit
+        _STAGE_CACHE.move_to_end(key)
+        while len(_STAGE_CACHE) > STAGE_CACHE_CAP:
+            _STAGE_CACHE.popitem(last=False)
+        staged.append(hit)
+    return staged
+
+
+def _make_task_lanes(task, dev: torch.device) -> List[sim.Lane]:
+    """Fresh lanes (one per policy) of one group task from the cached
+    artifacts: cheap to rebuild, which makes demotion safe -- a failed
+    bucket never patches half-advanced state, it recomputes the group."""
+    config, mix, pols, params, dram, _paths = task
+    p = params or sim.SimParams()
+    deadline = sim.calibrated_deadline(config, p, dram, device=dev)
+    art = sim.load_artifacts(config, mix, p, True)
+    return [sim.Lane(config, mix, pol, p, dram, float(deadline), art, True,
+                     device=dev) for pol in pols]
+
+
+def _demote_batch(task, poss: List[int], dev: torch.device
+                  ) -> Tuple[List[sim.Lane], str]:
+    """The degrade ladder's second and third rungs: the ``poss`` lanes of
+    ``task`` on the per-group fused engine, and if that fails degradably,
+    on the host loop -- each from fresh lanes, so the results are the same
+    whichever rung finishes the group."""
+    flt = _faults()
+    from . import fused
+    config, mix = task[0], task[1]
+
+    def fresh():
+        lanes = _make_task_lanes(task, dev)
+        return [lanes[j] for j in poss]
+
+    try:
+        sel = fresh()
+        flt.fire("fused", key=f"{config}|{mix}")
+        fused.drive_lanes_fused(sel)
+        return sel, "fused"
+    except Exception as e:
+        if not flt.degradable(e):
+            raise
+        flt.log_event("degrade", ladder="fused->host",
+                      task=f"{config}|{mix}", error=str(e)[:200])
+        sel = fresh()
+        _drive_lanes(sel, dev)
+        return sel, "host"
+
+
+def simulate_bucket(tasks: Sequence[Tuple], devices: Optional[int] = None,
+                    pipeline: Optional[bool] = None,
+                    task_keys: Optional[List[List[str]]] = None,
+                    device="cuda") -> List[List[sim.SimResult]]:
+    """Simulate many ``(config, mix, pols, params, dram, paths)`` group
+    tasks at once on ``device``: geometry batches are bucketed by the fused
+    engine's static shape (``fused.bucket_key``) and each bucket slab of
+    up to ``BUCKET_GROUPS`` groups runs as one flat lane batch
+    (``fused.drive_lanes_bucketed``).  Equal to per-task
+    ``simulate_group`` bitwise.  Batches the fused engine cannot take run
+    on the host loop; a slab that fails degradably walks the ladder
+    bucketed -> per-group fused -> host from fresh lanes.  Each finished
+    point is dumped to its ``paths`` entry (empty paths skip the cache)
+    and, with ``task_keys``, reported done.  Staged constants ride the
+    staging cache (``_staged_for``); ``pipeline`` goes to
+    ``fused.drive_lanes_bucketed``.
+    Returns per-task result lists in task order."""
+    from . import fused
+    fused.one_card(devices)
+    flt = _faults()
+    dev = _device.resolve(device)
+    task_lanes: List[List[sim.Lane]] = []
+    task_engines: List[set] = []
+    # bucket members carry (batch, task index, lane positions), so that a
+    # demoted batch can be rebuilt into its task's roster
+    buckets: Dict[Tuple, List[Tuple[List[sim.Lane], int, List[int]]]] = {}
+    host_batches: List[List[sim.Lane]] = []
+    for ti, task in enumerate(tasks):
+        lanes = _make_task_lanes(task, dev)
+        task_lanes.append(lanes)
+        task_engines.append(set())
+        batches: Dict[Tuple, List[int]] = {}
+        for j, lane in enumerate(lanes):
+            batches.setdefault(llc.geometry_key(lane.llc_cfg),
+                               []).append(j)
+        for poss in batches.values():
+            batch = [lanes[j] for j in poss]
+            if all(fused.lane_supported(lane) for lane in batch):
+                buckets.setdefault(fused.bucket_key(batch),
+                                   []).append((batch, ti, poss))
+                task_engines[ti].add("bucketed")
+            else:
+                host_batches.append(batch)
+                task_engines[ti].add("host")
+    for batch_list in buckets.values():
+        for lo in range(0, len(batch_list), BUCKET_GROUPS):
+            slab = batch_list[lo:lo + BUCKET_GROUPS]
+            groups = [b for b, _ti, _poss in slab]
+            try:
+                flt.fire("bucket", key=f"{len(groups)}g")
+                fused.drive_lanes_bucketed(groups, devices=devices,
+                                           staged=_staged_for(groups),
+                                           pipeline=pipeline)
+            except Exception as e:
+                if not flt.degradable(e):
+                    raise
+                flt.log_event("degrade", ladder="bucketed->fused",
+                              groups=len(groups), error=str(e)[:200])
+                for _batch, ti, poss in slab:
+                    sel, rung = _demote_batch(tasks[ti], poss, dev)
+                    for j, lane in zip(poss, sel):
+                        task_lanes[ti][j] = lane
+                    task_engines[ti].add(rung)
+    for batch in host_batches:
+        _drive_lanes(batch, dev)
+    out: List[List[sim.SimResult]] = []
+    for ti, (task, lanes) in enumerate(zip(tasks, task_lanes)):
+        results = [lane.result() for lane in lanes]
+        for res, path in zip(results, task[5]):
+            sim._atomic_dump(res, path)
+        engs = task_engines[ti]
+        eng = ("host" if "host" in engs else
+               "fused" if "fused" in engs else "bucketed")
+        if task_keys is not None:
+            for key in task_keys[ti]:
+                flt.point_done(key, source="computed", engine=eng)
+        out.append(results)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # cross-group orchestration (disk-cache dedup)
 # ---------------------------------------------------------------------------
 def _params_key(p: sim.SimParams, dram: DramModel) -> str:
     return json.dumps({"par": dataclasses.asdict(p), "d": dram.name},
                       sort_keys=True, default=str)
+
+
+def _calibrate_task(task, dev: torch.device) -> float:
+    config, params, dram = task
+    return sim.calibrated_deadline(config, params, dram, device=dev)
 
 
 def _prepare_lern(tasks, dev: torch.device) -> None:
@@ -268,11 +473,12 @@ def _plan_tasks(points: Sequence[SweepPoint], max_lanes: int,
     (config, mix, params, dram) and chunking into <= ``max_lanes`` policy
     lanes.
 
-    Returns ``(results, tasks, task_idxs, task_keys, seen_paths)`` --
-    ``results`` pre-filled with cache hits, ``tasks`` as ``(config, mix,
-    pols, params, dram, paths)`` tuples (empty paths when ``cache`` is
-    off, so the group task skips the dump), ``task_keys`` the per-task
-    manifest point keys.  Corrupt cache entries are quarantined and the
+    Returns ``(results, tasks, task_idxs, task_keys, calib, seen_paths)``
+    -- ``results`` pre-filled with cache hits, ``tasks`` as ``(config,
+    mix, pols, params, dram, paths)`` tuples (empty paths when ``cache`` is
+    off, so the executors skip the dump), ``task_keys`` the per-task
+    manifest point keys, ``calib`` the unique ``(config, params, dram)``
+    deadline calibrations.  Corrupt cache entries are quarantined and the
     point recomputed (``sim.cache_load``)."""
     flt = _faults()
     results: List[Optional[sim.SimResult]] = [None] * len(points)
@@ -297,9 +503,12 @@ def _plan_tasks(points: Sequence[SweepPoint], max_lanes: int,
     tasks = []
     task_idxs: List[List[int]] = []
     task_keys: List[List[str]] = []
+    calib: Dict[str, Tuple] = {}
     for members in groups.values():
         first = members[0][1]
         params, dram = first.resolved_params(), first.dram
+        calib.setdefault(f"{first.config}|{_params_key(params, dram)}",
+                         (first.config, params, dram))
         for lo in range(0, len(members), max_lanes):
             chunk = members[lo:lo + max_lanes]
             tasks.append((first.config, first.mix,
@@ -309,7 +518,7 @@ def _plan_tasks(points: Sequence[SweepPoint], max_lanes: int,
                           else ()))
             task_idxs.append([idx for idx, _, _ in chunk])
             task_keys.append([point_key(path) for _, _, path in chunk])
-    return results, tasks, task_idxs, task_keys, seen_paths
+    return results, tasks, task_idxs, task_keys, calib, seen_paths
 
 
 def _fill_twins(results, seen_paths) -> None:
@@ -372,7 +581,7 @@ def map_points(points: Sequence[SweepPoint], jobs: int = 1,
     flt = _faults()
     retries = TASK_RETRIES if retries is None else retries
     with flt.activate(), flt.reporting(report):
-        results, tasks, task_idxs, task_keys, seen_paths = \
+        results, tasks, task_idxs, task_keys, _calib, seen_paths = \
             _plan_tasks(points, max_lanes, cache=True)
         if tasks:
             _prepare_lern(tasks, dev)
@@ -383,5 +592,40 @@ def map_points(points: Sequence[SweepPoint], jobs: int = 1,
                 for key in keys:
                     flt.point_done(key, source="computed", engine=eng,
                                    attempts=n_att)
+        _fill_twins(results, seen_paths)
+    return results  # type: ignore[return-value]
+
+
+def run_bucketed(points: Sequence[SweepPoint], max_lanes: int = MAX_LANES,
+                 devices: Optional[int] = None, cache: bool = True,
+                 pipeline: Optional[bool] = None, report=None,
+                 device="cuda") -> List[sim.SimResult]:
+    """The bucketed twin of ``map_points`` on ``device``: the same front half
+    (cache reads when ``cache``, dedup, grouping, chunking), the deadline
+    calibrations resolved once up front, then every uncached group at once
+    through ``simulate_bucket`` -- the whole sweep on the card instead of
+    group by group.  ``pipeline`` goes to the bucketed engine (None =
+    ``REPRO_BUCKET_PIPELINE``); ``devices`` of None or 1 is the one card,
+    more raises ``NotImplementedError`` before any work (item 14).
+    ``report`` receives per-point records and fault events.  Returns
+    results in ``points`` order, bitwise those of ``map_points``."""
+    from . import fused
+    fused.one_card(devices)
+    dev = _device.resolve(device)
+    flt = _faults()
+    with flt.activate(), flt.reporting(report):
+        results, tasks, task_idxs, task_keys, calib, seen_paths = \
+            _plan_tasks(points, max_lanes, cache=cache)
+        if tasks:
+            _prepare_lern(tasks, dev)
+            # every (config, params, dram) deadline once, up front, so that
+            # building a task's lanes only reads the calibration cache
+            for t in calib.values():
+                _calibrate_task(t, dev)
+            bucket_rs = simulate_bucket(tasks, devices, pipeline,
+                                        task_keys=task_keys, device=dev)
+            for idxs, rs in zip(task_idxs, bucket_rs):
+                for idx, res in zip(idxs, rs):
+                    results[idx] = res
         _fill_twins(results, seen_paths)
     return results  # type: ignore[return-value]

@@ -18,15 +18,21 @@ in the shared cross-process ``state`` marker directory that makes
 ``max_fires`` a *global* budget, not per-process — and exports it to
 the environment for the duration.
 
-Sites instrumented in the port (the JAX package also has the bucketed
-engine's ``bucket``, ``fused``, ``bucket_overflow`` and ``stage_evict``
-sites and the serve sites; they come with the bucketed engine and the
-serve replay, ROADMAP.md Queue 1 items 10b and 12):
+Sites instrumented in the port (the JAX package also has the serve
+sites; they come with the serve replay, ROADMAP.md Queue 1 item 12):
 
 ==================  =====================================================
 ``task``            inside ``sweep._group_task`` (inline group tasks)
 ``cache_read``      ``sim.cache_load`` — damages the entry on disk first
 ``cache_dump``      ``sim._atomic_dump`` — corrupt/truncate/torn writes
+``stage_evict``     ``sweep._staged_for`` — drops the staging cache
+``bucket``          ``sweep.simulate_bucket``, before a bucket slab runs
+                    (stands for a failed slab: the card out of memory)
+``fused``           ``sweep._demote_batch``, the per-group fused replay
+                    (the ladder's second rung)
+``bucket_overflow`` ``fused.drive_lanes_bucketed`` — forces the freeze /
+                    escalate / demote machinery as if every active group
+                    had overflowed at the round-capacity cap
 ==================  =====================================================
 
 Kinds: ``raise`` / ``resource`` (exceptions — ``resource`` mimics an
@@ -292,16 +298,15 @@ def fire(site: str, key: str = "") -> Optional[FaultSpec]:
 
 def degradable(exc: BaseException) -> bool:
     """Is this the class of failure the engine ladder may absorb by
-    demoting bucket→fused→host (XLA compile / RESOURCE_EXHAUSTED /
-    injected), as opposed to a logic error that must propagate?"""
+    demoting bucket→fused→host (an injected fault, or torch's
+    ``OutOfMemoryError``: the card out of memory), as opposed to an error
+    that must propagate?  A failed ``nvcc`` build or a refused kernel
+    launch (``kernels/*/kernel.py`` ``_check``) propagates: the port has
+    no fallback from a kernel to a plain version on the card."""
     if isinstance(exc, InjectedFault):
         return True
-    name = type(exc).__name__
-    if name in ("XlaRuntimeError", "JaxRuntimeError"):
-        return True
-    msg = str(exc)
-    return ("RESOURCE_EXHAUSTED" in msg or "out of memory" in msg
-            or "Compilation failure" in msg)
+    # by name, so that this module stays free of torch
+    return any(c.__name__ == "OutOfMemoryError" for c in type(exc).__mro__)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """``run(spec, plan=ExecPlan(...), device=...) -> ResultSet`` -- the single
 public entry point for evaluating anything on the port.
 
-Points go through ``sweep.map_points`` (lane-batched ``simulate_group`` +
-disk-cache dedup) on the plan's engine (``host`` or ``fused``); with the
-cache off, through ``simulate_group`` per (config, mix, params, dram)
-group.  The JAX package's bucketed engine and its process pool
-(``jobs > 1``) are not ported yet: asking for them raises
-``NotImplementedError`` (ROADMAP.md Queue 1 items 10b and 11).
+``engine="bucketed"``, and the ``"auto"`` default with ``jobs <= 1``, runs
+the whole sweep at once through ``sweep.run_bucketed`` (buckets of groups
+as one flat lane batch on the card).  ``host`` and ``fused`` go through
+``sweep.map_points`` (lane-batched ``simulate_group`` + disk-cache dedup);
+with the cache off, through ``simulate_group`` per (config, mix, params,
+dram) group.  The JAX package's process pool (``jobs > 1``) is not ported
+yet: asking for it raises ``NotImplementedError`` (ROADMAP.md Queue 1
+item 11).
 """
 from __future__ import annotations
 
@@ -69,12 +71,16 @@ def run_points(points: Sequence[Point], plan: Optional[ExecPlan] = None,
                report: Optional[RunReport] = None,
                device="cuda") -> List[sim.SimResult]:
     """Evaluate resolved points in order on ``device``; the engine behind
-    ``run``.  ``plan.fit_engine`` pins the LERN fit engine for the run,
-    ``plan.faults`` activates a deterministic fault-injection plan, and
-    ``report`` collects per-point completion records and fault/recovery
-    events."""
+    ``run``.  ``engine="bucketed"`` (and ``"auto"`` with ``jobs <= 1``)
+    runs the points through ``sweep.run_bucketed``; ``host`` and ``fused``
+    through ``sweep.map_points``.  ``plan.fit_engine`` pins the LERN fit
+    engine for the run, ``plan.faults`` activates a deterministic
+    fault-injection plan, and ``report`` collects per-point completion
+    records and fault/recovery events."""
     rp = (plan or ExecPlan()).resolve()
-    if rp.jobs > 1:
+    bucketed = rp.engine == "bucketed" or (rp.engine == "auto"
+                                           and rp.jobs <= 1)
+    if not bucketed and rp.jobs > 1:
         raise NotImplementedError(
             f"jobs={rp.jobs}: the process pool is not ported yet "
             "(ROADMAP.md Queue 1 item 11); use jobs=1")
@@ -83,6 +89,11 @@ def run_points(points: Sequence[Point], plan: Optional[ExecPlan] = None,
     with lern_mod.fit_engine_override(rp.fit_engine), \
             faults_mod.activate(faults_mod.as_plan(rp.faults)), \
             faults_mod.reporting(report):
+        if bucketed:
+            return sweep.run_bucketed(sps, max_lanes=rp.max_lanes,
+                                      devices=rp.devices, cache=rp.cache,
+                                      pipeline=rp.pipeline, report=report,
+                                      device=dev)
         if rp.cache:
             return sweep.map_points(sps, max_lanes=rp.max_lanes,
                                     engine=rp.engine, report=report,

@@ -9,7 +9,10 @@
   reference child of ``tests/test_torch_sim.py`` -- on both fit engines,
   bitwise; the manifest and resume of ``RunReport``; the cache-off path
   gives the cached path's results.
-* The unported engines and ``jobs > 1`` raise ``NotImplementedError``.
+* ``ExecPlan`` resolution: ``"auto"`` stays ``"auto"`` and ``run_points``
+  sends it (``jobs=1``) to ``sweep.run_bucketed``; the bucketed plans run
+  and give the host plan's results; ``jobs > 1`` raises
+  ``NotImplementedError``.
 """
 import dataclasses
 import json
@@ -120,14 +123,26 @@ def test_manifest_and_resume(port_cache, tmp_path):
 
 
 def test_exec_plan_resolution(port_cache, monkeypatch):
+    monkeypatch.delenv("REPRO_BUCKET_PIPELINE", raising=False)
     rp = exp.ExecPlan().resolve()
-    assert (rp.engine, rp.jobs, rp.cache, rp.fit_engine, rp.max_lanes) == \
-        ("host", 1, True, "auto", sweep.MAX_LANES)
+    assert (rp.engine, rp.jobs, rp.cache, rp.fit_engine, rp.max_lanes,
+            rp.devices, rp.pipeline) == \
+        ("auto", 1, True, "auto", sweep.MAX_LANES, None, True)
+    # "auto" with jobs=1 runs through the bucketed engine
+    calls = []
+    real = sweep.run_bucketed
+    monkeypatch.setattr(sweep, "run_bucketed", lambda *a, **kw: (
+        calls.append(kw), real(*a, **kw))[1])
+    rs = exp.run(_tiny_spec(), device="cpu")
+    assert len(calls) == 1 and calls[0]["cache"] is True
+    assert rs.column("policy") == list(EXP_POLICIES)
     monkeypatch.setenv("REPRO_LERN_FIT", "bucketed")
     monkeypatch.setenv("REPRO_ENGINE", "fused")
+    monkeypatch.setenv("REPRO_BUCKET_PIPELINE", "0")
     rp = exp.ExecPlan().resolve()
-    assert (rp.engine, rp.fit_engine) == ("fused", "bucketed")
-    assert exp.ExecPlan(engine="auto").resolve().engine == "host"
+    assert (rp.engine, rp.fit_engine, rp.pipeline) == \
+        ("fused", "bucketed", False)
+    assert exp.ExecPlan(engine="auto").resolve().engine == "auto"
     with pytest.raises(ValueError):
         exp.ExecPlan(engine="warp")
     with pytest.raises(ValueError):
@@ -139,9 +154,23 @@ def test_exec_plan_resolution(port_cache, monkeypatch):
     (dict(engine="bucketed", cache=False), "item 10"),
     (dict(engine="bucketed", fit_engine="segmented"), "item 10"),
     (dict(jobs=2), "item 11")])
-def test_unported_plans_raise(port_cache, plan, item):
-    with pytest.raises(NotImplementedError, match=item):
-        exp.run(_tiny_spec(), plan=exp.ExecPlan(**plan), device="cpu")
+def test_unported_plans_raise(tmp_path, monkeypatch, plan, item):
+    """Item 10's bucketed plans are ported: they run (from an empty
+    cache) and give the host plan's results.  Item 11's process pool
+    (``jobs > 1``) still raises."""
+    monkeypatch.setenv("REPRO_CACHE", str(tmp_path))
+    if item == "item 11":
+        with pytest.raises(NotImplementedError, match=item):
+            exp.run(_tiny_spec(), plan=exp.ExecPlan(**plan), device="cpu")
+        return
+    rs = exp.run(_tiny_spec(), plan=exp.ExecPlan(**plan), device="cpu")
+    assert {r["engine"] for r in rs.run_report.points.values()} == \
+        {"bucketed"}
+    host = exp.run(_tiny_spec(), plan=exp.ExecPlan(engine="host",
+                                                   cache=False),
+                   device="cpu")
+    assert [dataclasses.asdict(r) for r in rs.results()] == \
+        [dataclasses.asdict(r) for r in host.results()]
 
 
 def test_run_defaults_to_the_card(port_cache, monkeypatch):

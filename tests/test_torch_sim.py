@@ -35,6 +35,9 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
 * ``fused``  -- the JAX fused engine (``fused.drive_lanes_fused``) on the
                 ``FUSED_CASES`` groups (``tests/test_torch_fused.py``),
                 pickled.
+* ``bucketed`` -- the JAX package's ``sweep.run_bucketed`` on the
+                ``BUCKET_SWEEP`` points with the result cache off
+                (``tests/test_torch_bucketed.py``), pickled.
 * ``sched``  -- fig. 17's scheduler comparison cell (``SCHED_CELL``) through
                 ``exp.run`` on the host and fused engines, as JSON: what
                 ``chip_smoke.py`` phase 10 holds the card to.  Regenerate
@@ -121,6 +124,12 @@ FUSED_CASES = (
     ("overflow", "config3", "moti2", ("hydra", "arp-cs-as-d"),
      "DDR3_1600_8x8", 60, 2, 8, 40),
 )
+# the bucketed child's sweep at the tiny point: per mix two groups that
+# share a bucket (their params differ in max_epochs only), three lanes each
+# with a LERN lane; moti1 and moti2 key apart (their core slots differ)
+BUCKET_SWEEP = dict(config="config1", mixes=("moti1", "moti2"),
+                    policies=("fifo-nb", "arp-cs-as", "hydra"),
+                    max_epochs=(40, 25))
 # fig. 17's scheduler comparison (benchmarks/fig17_ddr.py:43-47) on its
 # smoke footprint's mix, with two of its policies, at the full preset
 SCHED_CELL = dict(config="config1", mix="moti1", policies=("hydra",
@@ -185,6 +194,15 @@ def drive_fused_case(fused, lanes, case):
     finally:
         fused.MAX_ROUNDS_CAP = saved
     return [lane.result() for lane in lanes]
+
+
+def bucket_sweep_points(sim, sweep, policies):
+    """BUCKET_SWEEP as SweepPoints of either package."""
+    c = BUCKET_SWEEP
+    return [sweep.SweepPoint(c["config"], mix, policies.get(name),
+                             sim.SimParams(**dict(TINY, max_epochs=epochs)))
+            for mix in c["mixes"] for epochs in c["max_epochs"]
+            for name in c["policies"]]
 
 
 def sched_spec(exp):
@@ -646,6 +664,12 @@ def _child_main(mode: str, out: str) -> None:
             for case in FUSED_CASES}
         with open(out, "wb") as f:
             pickle.dump(res, f)
+    elif mode == "bucketed":
+        from repro.core import sweep
+        rs = sweep.run_bucketed(bucket_sweep_points(sim, sweep, policies),
+                                cache=False)
+        with open(out, "wb") as f:
+            pickle.dump([dataclasses.asdict(r) for r in rs], f)
     elif mode == "sched":
         from repro import exp
         doc = sched_doc(exp, lambda spec, engine: exp.run(

@@ -8,7 +8,8 @@
   reference child of ``tests/test_torch_sim.py``) at the
   ``tests/test_sweep.py`` point.
 * ``sweep.map_points``: results in point order, twins computed once,
-  a second call served from the cache.
+  a second call served from the cache; it and ``simulate_group`` reject
+  the plan-level ``"bucketed"`` engine.
 """
 import dataclasses
 
@@ -149,14 +150,17 @@ def test_map_points_order_cache_and_dedup(port_cache, monkeypatch):
 
 
 def test_unported_engines_raise(port_cache):
-    """The bucketed engine (item 10b) and the process pool (item 11) are
-    not ported yet; the fused engine is (tests/test_torch_fused.py)."""
+    """The bucketed engine is a plan-level engine (``sweep.run_bucketed``,
+    tests/test_torch_bucketed.py): ``map_points`` and ``simulate_group``
+    reject it as an unknown engine, as the JAX package's do, before any
+    work.  The process pool (item 11) is not ported yet."""
     config, mix, pols, p = _port_group(0)
     pt = [sweep.SweepPoint(config, mix, pols[0], p)]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="unknown engine 'bucketed'"):
         sweep.map_points(pt, engine="bucketed", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="unknown engine 'bucketed'"):
         sweep.simulate_group(config, mix, pols, p, engine="bucketed",
                              device="cpu")
+    assert not any(port_cache.rglob("*.pkl"))      # nothing ran
     with pytest.raises(NotImplementedError, match="item 11"):
         sweep.map_points(pt, jobs=2, device="cpu")
