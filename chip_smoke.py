@@ -53,7 +53,16 @@ port's two paths at full size, each with the kernels' launch counts set to
   with 2 layers on ``convert.lm_numpy_params`` held to the JAX package's
   logits (``src/repro_torch/golden/qwen3_1_7b_w2_serve.json``); phase 9,
   the 28-layer model in ``ServeEngine`` with the ``HydraKVScheduler``
-  answering the serve launcher's 12 requests, stats equal to the golden.
+  answering the serve launcher's 12 requests, stats equal to the golden;
+* phase 11, the serve replay at full width: the four cells of
+  ``benchmarks/bench_serve.py``'s full grid (a drifting Poisson trace of
+  6000 sessions, rates 2 and 8 x ``kv-online`` and ``evict-all``, 128
+  slots, 4096 steps) through ``serve.run`` on the batched engine
+  (``ExecPlan(engine="auto")``, each super-step under the sync check) and
+  on the host oracle in turns, every counter, both histograms and the
+  scheduler's stats equal to each other and to
+  ``src/repro_torch/golden/serve_replay_full.json``, no demotion, and the
+  kv-online cells' profile fits and refits on the ``kmeans_fit`` kernel.
 
 Flash attention has two kernels (``ops.route``): bf16 goes to the Hopper
 kernel (``wgmma`` for both products, a TMA-fed K/V ring, a producer
@@ -84,7 +93,8 @@ fit of the bucketed engine and of the serve profile) and
 ``kmeans_fit_segmented`` (the default engine's fit), each followed by one
 launch of its assignment kernel for the final assignment.  Phases 4, 6, 7
 and 9 count the launches of all four k-means kernels (one fit: one launch
-of each kernel of its pair); phase 3b holds each fit kernel against its
+of each kernel of its pair), phase 11 those of ``kmeans_fit`` and
+``kmeans_assign`` (the serve profile and its online refits); phase 3b holds each fit kernel against its
 plain fit bitwise on test cases, on two streams at once and at the path
 shapes, and times them in turns; phase 5b times the paths' fits (config3
 segmented and bucketed, config7 bucketed, the serve profile) through the
@@ -138,6 +148,7 @@ GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
 SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
 LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
 SCHED = os.path.join(GOLDEN_DIR, "config1_sched.json")
+SERVE_REPLAY = os.path.join(GOLDEN_DIR, "serve_replay_full.json")
 # phase walls before the round loop became a kernel (the last two runs of
 # this script before it did, on an NVIDIA H100 80GB HBM3 at 700.00 W;
 # PERF.md section 5)
@@ -1175,15 +1186,18 @@ class SyncChecked:
         self.fused, self.name = fused, name
         self.fn = getattr(fused, name)
         self.calls = 0
+        self.seconds = 0.0      # host seconds in the calls: the enqueue
         setattr(fused, name, self)
 
     def __call__(self, *args, **kw):
         import torch
         self.calls += 1
         torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
         try:
             return self.fn(*args, **kw)
         finally:
+            self.seconds += time.perf_counter() - t0
             torch.cuda.set_sync_debug_mode(0)
 
     def restore(self):
@@ -1685,6 +1699,163 @@ def run_engine(cfg, params, golden_serve: dict, dev) -> dict:
             "profile": profile_decode(eng, dev)}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serve replay at full width
+# ---------------------------------------------------------------------------
+def replay_record(res, stats) -> dict:
+    """One replay outcome as the golden file keeps it."""
+    return json.loads(json.dumps({
+        "counters": dict(res.counters),
+        "wait_hist": [int(v) for v in res.wait_hist],
+        "lat_hist": [int(v) for v in res.lat_hist],
+        "sched_stats": dict(stats), "summary": res.summary()}))
+
+
+class Evaluations:
+    """Wraps ``serve.api._evaluate`` and keeps each cell's (result,
+    scheduler stats): ``serve.run``'s rows carry three of the stats."""
+
+    def __init__(self, api):
+        self.api, self.fn, self.out = api, api._evaluate, []
+        api._evaluate = self
+
+    def __call__(self, *args, **kw):
+        res, stats = self.fn(*args, **kw)
+        self.out.append((res, stats))
+        return res, stats
+
+    def restore(self):
+        self.api._evaluate = self.fn
+
+
+def superstep_busy(replay_mod, spec, dev, steps: int = 2) -> dict:
+    """``torch.profiler`` over ``steps`` super-steps of ``spec``'s replay
+    from its first state: the kernels' device time against the wall of
+    the enqueue plus one read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import serve
+    from repro_torch.serve.api import _build_scheduler
+    trace = serve.generate(spec.trace)
+    sched = _build_scheduler(spec, spec.resolved_knobs(), dev)
+    dims = replay_mod._Dims(
+        n=trace.n, slots=spec.slots, budget=int(sched.token_budget),
+        max_steps=spec.max_steps, k=int(sched.apm.epoch_len),
+        residency=sched.knobs.residency, admission=spec.admission)
+    consts, carry = replay_mod._stage(trace, dev)
+    rc, ri = (replay_mod._i64(a, dev) for a in replay_mod.classify_sessions(
+        sched.profile, trace.turns, trace.gap))
+    th = (int(sched.ri_th), int(sched.rc_th))
+    replay_mod._read(*replay_mod._superstep(dims, consts, carry, rc, ri,
+                                            *th))         # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            carry, comp = replay_mod._superstep(dims, consts, carry, rc, ri,
+                                                *th)
+            replay_mod._read(carry, comp)
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return {"wall_ms": wall / steps * 1e3, "device_ms": busy / steps,
+            "kernels": len(kern) / steps}
+
+
+def run_serve_replay(golden: dict, kops, dev) -> dict:
+    """Phase 11: the four cells of ``benchmarks/bench_serve.py``'s full
+    grid (6000 sessions, rates 2 and 8 x kv-online and evict-all, 128
+    slots, 4096 steps) through ``serve.run`` on the batched engine
+    (``ExecPlan(engine="auto")``, every super-step under the sync check)
+    and on the host oracle, in turns a cell.  Each cell's counters, both
+    histograms and the scheduler's stats must equal the host oracle's and
+    the golden file; every batched row must say ``batched`` with no
+    ``serve_degrade`` event; a kv-online cell must launch ``kmeans_fit``
+    at least twice (its offline profile and a refit), an evict-all cell
+    never.  The launch counts are set to 0 just before each leg and read
+    just after it."""
+    import importlib
+    import torch
+    from repro_torch import exp, serve
+    from repro_torch.serve import api
+    replay_mod = importlib.import_module("repro_torch.serve.replay")
+    fit, dense = kops.fit_masked, kops.assign
+    cells = []
+    for cell in golden["cells"]:
+        spec = serve.ServeSpec.from_dict(cell["spec"])
+        if json.loads(json.dumps(spec.spec_dict())) != cell["spec"]:
+            raise AssertionError(f"phase 11: {spec} does not rebuild the "
+                                 f"golden's spec")
+        want = {k: cell[k] for k in ("counters", "wait_hist", "lat_hist",
+                                     "sched_stats", "summary")}
+        legs = {}
+        for leg, engine in (("batched", "auto"), ("host", "host")):
+            ev = Evaluations(api)
+            chk = SyncChecked(replay_mod) if leg == "batched" else None
+            read = Timed(replay_mod, "_read")
+            fit.launches = dense.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = serve.run(spec, plan=exp.ExecPlan(engine=engine,
+                                                   cache=False), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"kmeans_fit": fit.launches,
+                        "kmeans_assign": dense.launches}
+            for hook in (ev, chk, read):
+                if hook is not None:
+                    hook.restore()
+            row = rs.one()
+            degr = [e for e in rs.run_report.events
+                    if e["kind"] == "serve_degrade"]
+            (res, stats), = ev.out
+            legs[leg] = {"row": row, "wall_s": wall, "launches": launches,
+                         "record": replay_record(res, stats),
+                         "supersteps": chk.calls if chk else 0,
+                         "enqueue_s": chk.seconds if chk else 0.0,
+                         "read_s": read.seconds, "degraded": degr}
+            if row["engine"] != leg or degr:
+                raise AssertionError(f"phase 11 {leg} leg of {spec.knobs} "
+                                     f"rate {spec.trace.rate}: engine "
+                                     f"{row['engine']}, events {degr}")
+        b, h = legs["batched"], legs["host"]
+        name = f"{spec.knobs} rate {spec.trace.rate:g}"
+        if b["record"] != h["record"]:
+            raise AssertionError(f"phase 11 {name}: batched != host oracle")
+        if b["record"] != want:
+            diff = [k for k in want if b["record"][k] != want[k]]
+            raise AssertionError(f"phase 11 {name}: differs from the golden "
+                                 f"in {diff}")
+        if b["supersteps"] < 1:
+            raise AssertionError(f"phase 11 {name}: {b['supersteps']} "
+                                 f"super-steps")
+        n_fit = b["launches"]["kmeans_fit"]
+        if spec.knobs == "kv-online":
+            if n_fit < 2 or n_fit != 1 + b["row"]["refits"] or \
+                    b["launches"]["kmeans_assign"] != n_fit:
+                raise AssertionError(f"phase 11 {name}: launches "
+                                     f"{b['launches']}, refits "
+                                     f"{b['row']['refits']}; want the "
+                                     f"offline fit plus one a refit")
+        elif b["launches"] != {"kmeans_fit": 0, "kmeans_assign": 0}:
+            raise AssertionError(f"phase 11 {name}: launches "
+                                 f"{b['launches']}, want none")
+        cells.append({"spec": spec, "name": name, **legs})
+    rates = sorted({c["spec"].trace.rate for c in cells})
+    delta = {}
+    for r in rates:
+        by = {c["spec"].knobs: c["batched"]["row"]["dmr"] for c in cells
+              if c["spec"].trace.rate == r}
+        delta[r] = by["evict-all"] - by["kv-online"]
+    top = max(cells, key=lambda c: (c["spec"].trace.rate,
+                                    c["spec"].knobs == "kv-online"))
+    busy = superstep_busy(replay_mod, top["spec"], dev)
+    return {"cells": cells, "resid_dmr_delta": delta, "busy": busy,
+            "busy_cell": top["name"]}
+
+
 def profile_decode(eng, dev, steps: int = 4) -> dict:
     """``torch.profiler`` over a few more decode steps of the finished
     engine (its stats are already taken): device time against wall time
@@ -1726,7 +1897,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN,
-                                           SCHED)):
+                                           SCHED, SERVE_REPLAY)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -2442,6 +2613,30 @@ def main() -> int:
                              f"want one kmeans_fit and one kmeans_assign "
                              f"launch (one profile fit)")
     del params
+
+    # 11. the serve replay at full width: benchmarks/bench_serve.py's grid
+    t0 = time.time()
+    r11 = run_serve_replay(json.load(open(SERVE_REPLAY)), kops, dev)
+    for c in r11["cells"]:
+        b, h = c["batched"], c["host"]
+        s11 = b["record"]["summary"]
+        log(f"[replay] phase 11 {c['name']}: batched {b['wall_s']:.2f} s "
+            f"({b['supersteps']} super-steps, none synchronising; enqueue "
+            f"{b['enqueue_s']:.2f} s, reads {b['read_s']:.2f} s, the rest "
+            f"scheduler feed, epoch updates and profile fits), host oracle "
+            f"{h['wall_s']:.2f} s; launches batched {b['launches']}, host "
+            f"{h['launches']}; peak_concurrent {s11['peak_concurrent']:g}, "
+            f"refits {b['row']['refits']}, dmr {s11['dmr']!r}, p99 wait "
+            f"{s11['p99_wait_steps']:g} steps, sessions_per_kstep "
+            f"{s11['sessions_per_kstep']!r}; equal to the host oracle and "
+            f"the golden (counters, histograms, scheduler stats)")
+    bz = r11["busy"]
+    log(f"[replay] phase 11: resid_dmr_delta (evict-all dmr - kv-online "
+        f"dmr) {r11['resid_dmr_delta']}; profiler over 2 super-steps of "
+        f"{r11['busy_cell']}: wall {bz['wall_ms']:.2f} ms a super-step "
+        f"(enqueue + one read), device busy {bz['device_ms']:.2f} ms "
+        f"({bz['device_ms'] / bz['wall_ms']:.1%}), {bz['kernels']:.0f} "
+        f"kernels a super-step; phase {time.time() - t0:.1f} s; {nvidia_smi()}")
 
     # 3b. the kernels at the shapes the paths handed them
     kernels = []

@@ -379,3 +379,48 @@ def annotate_ri(centers_denorm: np.ndarray) -> np.ndarray:
     label = np.empty(c.shape[0], dtype=np.int64)
     label[order] = np.arange(c.shape[0])
     return label
+
+
+# ---------------------------------------------------------------------------
+# analysis (paper Fig. 5): host numpy, copies of the JAX package's
+# ---------------------------------------------------------------------------
+def silhouette_score(x: np.ndarray, assign: np.ndarray,
+                     max_points: int = 2000, seed: int = 0) -> float:
+    """Mean silhouette coefficient (sampled for tractability)."""
+    x = np.asarray(x, dtype=np.float64)
+    assign = np.asarray(assign)
+    n = x.shape[0]
+    if n > max_points:
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(n, max_points, replace=False)
+    else:
+        idx = np.arange(n)
+    xs, as_ = x[idx], assign[idx]
+    labels = np.unique(as_)
+    if labels.shape[0] < 2:
+        return 0.0
+    d = np.sqrt(((xs[:, None, :] - xs[None, :, :]) ** 2).sum(-1))
+    s = np.zeros(xs.shape[0])
+    for i in range(xs.shape[0]):
+        own = as_[i]
+        same = (as_ == own)
+        same[i] = False
+        a = d[i][same].mean() if same.any() else 0.0
+        b = np.inf
+        for l in labels:
+            if l == own:
+                continue
+            mask = as_ == l
+            if mask.any():
+                b = min(b, d[i][mask].mean())
+        s[i] = 0.0 if max(a, b) == 0 else (b - a) / max(a, b)
+    return float(s.mean())
+
+
+def pca_2d(x: np.ndarray) -> np.ndarray:
+    """2-D PCA projection (paper Fig. 5 feature-separability view)."""
+    x = np.asarray(x, dtype=np.float64)
+    xc = x - x.mean(0)
+    cov = xc.T @ xc / max(1, x.shape[0] - 1)
+    w, v = np.linalg.eigh(cov)
+    return xc @ v[:, np.argsort(w)[::-1][:2]]

@@ -108,6 +108,21 @@ class LayerClusters:
     rc_centers: np.ndarray   # [4] de-normalized, label-ordered (Cold..Hot)
     ri_centers: np.ndarray   # [4, 4] de-normalized, label-ordered
     features_ri: np.ndarray  # [n_multi, 4] raw histograms (Fig. 5 PCA plots)
+    _sil: Optional[float] = None
+
+    def silhouette(self) -> float:
+        """RI-cluster silhouette (Fig. 5), computed lazily from the stored
+        features -- keeps the O(n^2) score out of the training hot path."""
+        if self._sil is None:
+            labels = self.ri_cluster[self.rc_cluster >= 0]
+            if labels.shape[0] != self.features_ri.shape[0] or \
+                    labels.shape[0] < MIN_MULTI:
+                self._sil = 0.0
+            else:
+                raw = self.features_ri.astype(np.float64)
+                xri = raw / np.maximum(raw.sum(1, keepdims=True), 1e-9)
+                self._sil = km.silhouette_score(xri, labels)
+        return self._sil
 
 
 @dataclasses.dataclass
@@ -701,6 +716,59 @@ def train_family_batched(traces: List[Trace],
                      use_kernel, fit_engine)
     return [_assemble(flat, int(bounds[ci]), int(bounds[ci + 1]), hash_fn)
             for ci in range(len(traces))]
+
+
+def train_host_numpy(trace: Trace, hash_fn: Optional[Callable] = None,
+                     seed: int = 0, device="cuda") -> LernModel:
+    """The pre-refactor host pipeline, kept as the perf baseline (the JAX
+    package's ``train_host_numpy``).
+
+    A Python loop over layers, numpy feature extraction, two k-means fits
+    per layer at that layer's *exact* point count (``kmeans.kmeans_fit`` on
+    ``device``: the ``kmeans_fit`` and ``kmeans_assign`` kernels on the
+    card), and the O(n^2) silhouette computed inline.  It is not
+    bitwise-comparable to the batched path (the fit shapes differ), so
+    parity tests use ``train`` instead."""
+    dev = _device.resolve(device)
+    layers = []
+    for li, lines in enumerate(_layer_lines(trace, hash_fn)):
+        sig = reuse_signature_np(lines)
+        f_ri, f_rc = ri_histogram_np(lines, sig)
+        n = sig["uniq"].shape[0]
+        rc_cluster = np.full(n, -1, dtype=np.int64)
+        ri_cluster = np.full(n, -1, dtype=np.int64)
+        multi = f_rc > 1
+        sil = 0.0
+        rc_centers = np.zeros(4, np.float32)
+        ri_centers = np.zeros((4, NUM_RI_BINS), np.float32)
+        if int(multi.sum()) >= MIN_MULTI:
+            xrc = torch.as_tensor(np.log1p(f_rc[multi]).astype(np.float32),
+                                  device=dev)[:, None]
+            xn, lo, hi = km.normalize(xrc)
+            res = km.kmeans_fit(xn, k=4, seed=seed + li, device=dev)
+            centers = res.centers.cpu().numpy()
+            label_of = km.annotate_rc(centers)
+            rc_cluster[multi] = label_of[res.assign.cpu().numpy()]
+            denorm = centers * (hi - lo).cpu().numpy() + lo.cpu().numpy()
+            rc_centers = np.expm1(denorm.reshape(-1))[np.argsort(label_of)]
+            xri_raw = f_ri[multi].astype(np.float32)
+            xri = xri_raw / np.maximum(xri_raw.sum(1, keepdims=True), 1e-9)
+            res = km.kmeans_fit(torch.as_tensor(xri, device=dev), k=4,
+                                seed=seed + li, device=dev)
+            assign = res.assign.cpu().numpy()
+            centers_d = np.stack([
+                xri_raw[assign == c].mean(0) if (assign == c).any()
+                else np.zeros(NUM_RI_BINS) for c in range(4)])
+            label_ri = km.annotate_ri(centers_d)
+            ri_cluster[multi] = label_ri[assign]
+            ri_centers = centers_d[np.argsort(label_ri)]
+            sil = km.silhouette_score(xri, assign)
+        layers.append(LayerClusters(
+            uniq=sig["uniq"], rc_cluster=rc_cluster, ri_cluster=ri_cluster,
+            rc_centers=rc_centers, ri_centers=ri_centers,
+            features_ri=f_ri[multi] if multi.any()
+            else np.zeros((0, NUM_RI_BINS), np.int64), _sil=sil))
+    return LernModel.from_layers(layers, hash_fn=hash_fn)
 
 
 def prediction_accuracy(model: LernModel, trace: Trace) -> float:

@@ -18,8 +18,7 @@ in the shared cross-process ``state`` marker directory that makes
 ``max_fires`` a *global* budget, not per-process — and exports it to
 the environment for the duration.
 
-Sites instrumented in the port (the JAX package also has the serve
-sites; they come with the serve replay, ROADMAP.md Queue 1 item 12):
+Sites instrumented in the port (the JAX package's, all of them):
 
 ==================  =====================================================
 ``task``            inside ``sweep._group_task`` (inline group tasks)
@@ -33,6 +32,13 @@ sites; they come with the serve replay, ROADMAP.md Queue 1 item 12):
 ``bucket_overflow`` ``fused.drive_lanes_bucketed`` — forces the freeze /
                     escalate / demote machinery as if every active group
                     had overflowed at the round-capacity cap
+``refit``           ``HydraKVScheduler._online_refit`` — a failed online
+                    refit (the scheduler keeps its stale profile)
+``serve_step``      ``serve.replay``, once per scheduler epoch on both
+                    engines; ``ServeEngine`` every 16th engine step
+``serve_admission`` ``serve.replay``, per admitting step on the host
+                    oracle and once per super-step dispatch on the
+                    batched engine; ``ServeEngine._admit``
 ==================  =====================================================
 
 Kinds: ``raise`` / ``resource`` (exceptions — ``resource`` mimics an

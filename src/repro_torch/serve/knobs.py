@@ -1,7 +1,6 @@
 """SchedulerKnobs — the one frozen object that configures the serve-side
 HyDRA KV-residency scheduler (a copy of the JAX package's
-``serve/knobs.py``: ``exp.registry.SERVE`` holds its presets; the rest of
-``serve`` is ROADMAP.md Queue 1 item 12).
+``serve/knobs.py``: ``exp.registry.SERVE`` holds its presets).
 
 The pre-redesign ``HydraKVScheduler(token_budget=..., deadline_tokens=...,
 retrain_period=..., ...)`` kwarg pile is consolidated here so residency

@@ -44,6 +44,17 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 the committed file with ``PYTHONPATH=src JAX_PLATFORMS=cpu
                 python tests/test_torch_sim.py sched
                 src/repro_torch/golden/config1_sched.json``.
+* ``replay`` -- the serve replay at a small size (``REPLAY_*``): the
+                ``generate`` arrays of three trace specs, both JAX
+                ``replay`` engines on four presets x two admission orders,
+                and one ``serve.run`` hydra-serve/v1 document
+                (``tests/test_torch_replay.py``), pickled.
+* ``serve_replay`` -- the four cells of ``benchmarks/bench_serve.py``'s
+                full grid (``SERVE_FULL``) on both JAX engines (which must
+                agree), as JSON: what ``chip_smoke.py`` phase 11 holds the
+                card to.  Regenerate the committed file with
+                ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
+                serve_replay src/repro_torch/golden/serve_replay_full.json``.
 * ``lm_golden`` -- qwen3-1.7b at full width with its depth cut to 2 layers
                 on ``convert.lm_numpy_params(cfg, seed=0)``: last-token
                 logits of both prefill routes and 8 decode steps, plus the
@@ -144,6 +155,24 @@ LM_GOLDEN = dict(n_layers=2, seed=0, batch=2, seq=512, decode_steps=8,
 SERVE_RUN = dict(slots=4, s_max=256, max_steps=4000, token_budget=4096,
                  deadline_tokens=128, profile_seed=0)
 SESSIONS = 64          # seeded session features the profile is fit on
+# the serve replay at a small size (tests/test_torch_replay.py): a drifting
+# Poisson trace of 300 sessions on 16 slots for at most 1024 steps (the
+# kv-online cells refit at least once), the four presets under both
+# admission orders, and a serve.run grid of 2 rates x 2 knobs
+REPLAY_TRACE = dict(sessions=300, rate=0.5, prompt_tokens=8,
+                    decode_mean=6.0, drift=dict(period=3, strength=0.6,
+                                                seed=1), seed=3)
+REPLAY_RUN = dict(slots=16, max_steps=1024)
+REPLAY_KNOBS = ("kv-default", "kv-online", "keep-all", "evict-all")
+REPLAY_ADMISSIONS = ("urgency", "fifo")
+REPLAY_GRID = dict(rate=[0.5, 1.0], knobs=["kv-online", "evict-all"])
+# chip_smoke.py phase 11: the full grid of benchmarks/bench_serve.py:40-60
+# (6000 sessions, rates 2 and 8 x kv-online and evict-all, 128 slots, 4096
+# steps), whose golden file the child's serve_replay mode writes
+SERVE_FULL = dict(sessions=6000, arrival="poisson",
+                  drift=dict(period=4, strength=0.5), seed=0,
+                  rates=[2.0, 8.0], knobs=["kv-online", "evict-all"],
+                  slots=128, max_steps=4096)
 LERN_FIELDS = ("uniq", "rc_cluster", "ri_cluster", "n_uniq", "rc_centers",
                "ri_centers", "features_ri")
 # the fields tests/_reference.py::assert_bitwise compares
@@ -320,6 +349,51 @@ def engine_cases(serve):
             profile=prof, **kw)
 
     return {"none": lambda **kw: None, "hydra": hydra, "online": online}
+
+
+def trace_specs(serve) -> dict:
+    """name -> the TraceSpecs whose ``generate`` arrays are compared:
+    the replay trace (drift), plain Poisson, and bursty."""
+    base = replay_trace(serve)
+    return {"drift": base,
+            "poisson": dataclasses.replace(base, drift=None, sessions=500),
+            "bursty": dataclasses.replace(base, drift=None, sessions=800,
+                                          arrival="bursty", rate=2.0,
+                                          burst_factor=6.0,
+                                          burst_period=64, seed=5)}
+
+
+def replay_trace(serve):
+    d = dict(REPLAY_TRACE)
+    return serve.TraceSpec(drift=serve.MixDrift(**d.pop("drift")), **d)
+
+
+def replay_spec(serve, knobs, admission="urgency"):
+    return serve.ServeSpec(trace=replay_trace(serve), knobs=knobs,
+                           admission=admission, **REPLAY_RUN)
+
+
+def replay_grid(serve):
+    return serve.grid(trace=replay_trace(serve), **REPLAY_GRID, **REPLAY_RUN)
+
+
+def full_grid(serve):
+    """The phase 11 cells (rate-outer x knobs-inner, as bench_serve)."""
+    f = SERVE_FULL
+    base = serve.TraceSpec(sessions=f["sessions"], arrival=f["arrival"],
+                           drift=serve.MixDrift(**f["drift"]), seed=f["seed"])
+    return serve.grid(trace=base, rate=list(f["rates"]),
+                      knobs=list(f["knobs"]), slots=f["slots"],
+                      max_steps=f["max_steps"])
+
+
+def replay_record(res, stats) -> dict:
+    """One replay outcome as plain data: counters, both histograms (as
+    lists), the scheduler's stats and the summary."""
+    return {"counters": dict(res.counters),
+            "wait_hist": np.asarray(res.wait_hist).tolist(),
+            "lat_hist": np.asarray(res.lat_hist).tolist(),
+            "sched_stats": dict(stats), "summary": res.summary()}
 
 
 def drive_scheduler(sched, n=64, seed=0):
@@ -544,6 +618,59 @@ def _serve_child(out: str) -> None:
                      "refit_fault": refit}, f)
 
 
+def _replay_child(out: str) -> None:
+    from repro import exp, serve
+    from repro.serve.api import _build_scheduler
+    from repro.serve.replay import replay
+    traces = {}
+    for name, spec in trace_specs(serve).items():
+        t = serve.generate(spec)
+        traces[name] = {f: getattr(t, f) for f in (
+            "arrival", "turns", "gap", "prompt", "decode", "deadline",
+            "cls")}
+    runs = {}
+    for knobs in REPLAY_KNOBS:
+        for adm in REPLAY_ADMISSIONS:
+            spec = replay_spec(serve, knobs, adm)
+            trace = serve.generate(spec.trace)
+            for engine in ("host", "batched"):
+                sched = _build_scheduler(spec, spec.resolved_knobs())
+                res = replay(trace, sched, slots=spec.slots,
+                             max_steps=spec.max_steps, admission=adm,
+                             engine=engine)
+                runs[(knobs, adm, engine)] = replay_record(res,
+                                                           sched.stats())
+    rs = serve.run(replay_grid(serve), plan=exp.ExecPlan(cache=False))
+    with open(out, "wb") as f:
+        pickle.dump({"traces": traces, "runs": runs,
+                     "doc": json.loads(json.dumps(serve.to_serve_doc(rs)))},
+                    f)
+
+
+def _serve_replay_child(out: str) -> None:
+    from repro import serve
+    from repro.serve.api import _build_scheduler
+    from repro.serve.replay import replay
+    cells = []
+    for spec in full_grid(serve):
+        trace = serve.generate(spec.trace)
+        recs = {}
+        for engine in ("host", "batched"):
+            sched = _build_scheduler(spec, spec.resolved_knobs())
+            res = replay(trace, sched, slots=spec.slots,
+                         max_steps=spec.max_steps, admission=spec.admission,
+                         engine=engine)
+            recs[engine] = replay_record(res, sched.stats())
+        if recs["host"] != recs["batched"]:
+            raise SystemExit(f"the JAX engines disagree on {spec}")
+        cells.append(dict(recs["host"], spec=spec.spec_dict()))
+    doc = {"grid": SERVE_FULL, "source": "benchmarks/bench_serve.py:40-60",
+           "cells": cells}
+    with open(out, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def _lm_golden_child(out: str) -> None:
     import dataclasses as dc
     import jax
@@ -655,6 +782,10 @@ def _child_main(mode: str, out: str) -> None:
         _serve_child(out)
     elif mode == "lm_golden":
         _lm_golden_child(out)
+    elif mode == "replay":
+        _replay_child(out)
+    elif mode == "serve_replay":
+        _serve_replay_child(out)
     elif mode == "kmeans_fit":
         _kmeans_fit_child(out)
     elif mode == "fused":
