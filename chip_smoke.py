@@ -62,7 +62,19 @@ port's two paths at full size, each with the kernels' launch counts set to
   on the host oracle in turns, every counter, both histograms and the
   scheduler's stats equal to each other and to
   ``src/repro_torch/golden/serve_replay_full.json``, no demotion, and the
-  kv-online cells' profile fits and refits on the ``kmeans_fit`` kernel.
+  kv-online cells' profile fits and refits on the ``kmeans_fit`` kernel;
+* phase 12, the sweep process pool on the card: 12a, phase 6c's twelve
+  points through ``sweep.map_points(engine="host", max_lanes=3,
+  fit_engine="bucketed")`` with ``jobs=1`` and with four spawned workers
+  (four group tasks), each leg from an empty cache, bitwise equal to each
+  other, to 6c's host leg and (the moti2 six) to the system golden, every
+  kernel of the path launched (in the caller and, counted in each worker
+  by ``counted_pool_task``, in the group tasks), at least two workers
+  holding a CUDA context of their own, with each leg's wall and the
+  pool's start-up; 12b, the chaos suite's four tiny points on two workers
+  under a crash (the pool respawns), a hang with the watchdog armed and a
+  raise with a corrupted commit, each bitwise equal to the clean run and
+  with its event logged.
 
 Flash attention has two kernels (``ops.route``): bf16 goes to the Hopper
 kernel (``wgmma`` for both products, a TMA-fed K/V ring, a producer
@@ -1856,6 +1868,358 @@ def run_serve_replay(golden: dict, kops, dev) -> dict:
             "busy_cell": top["name"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sweep process pool on the card
+# ---------------------------------------------------------------------------
+# each pool task's kernel launches in its worker, one JSON file a task
+POOL_DIR = os.path.join(ROOT, "build", "chip_smoke_pool")
+POOL_JOBS = 4
+# tests/test_faults.py's four points (config1, two mixes x two policies at
+# the tiny point) on two workers; the watchdog gives a task five seconds
+# (a task takes about one on the card, the workers already started)
+CHAOS_POINTS = dict(config="config1", mixes=("moti1", "moti2"),
+                    policies=("fifo-nb", "arp-cs-as"),
+                    params=dict(n_inputs=1, max_epochs=40,
+                                subsample_target=50_000))
+CHAOS_JOBS = 2
+CHAOS_TIMEOUT_S = 5.0
+
+
+def pool_counters() -> dict:
+    """The launch counters of the simulator's kernel wrappers."""
+    from repro_torch.kernels.kmeans_assign import ops as kops
+    from repro_torch.kernels.llc_rounds import ops as rops
+    from repro_torch.kernels.ri_histogram import ops as hops
+    return {"ri_histogram": hops.histogram, "kmeans_fit": kops.fit_masked,
+            "kmeans_assign": kops.assign,
+            "kmeans_fit_segmented": kops.fit_segmented,
+            "kmeans_assign_segmented": kops.assign_segmented,
+            "llc_rounds": rops.rounds}
+
+
+def counted_pool_task(task, engine, device):
+    """``sweep._pool_task`` as a pool worker runs it, then the launches
+    the task made (the wrappers' own counts in this worker) written to a
+    file of ``POOL_DIR``: the caller cannot read a worker's counters."""
+    import torch
+    from repro_torch.core import sweep
+    counters = pool_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    try:
+        return sweep._pool_task(task, engine, device)
+    finally:
+        rec = {"pid": os.getpid(), "task": f"{task[0]}|{task[1]}|"
+               + "+".join(p.name for p in task[2]),
+               "cuda": torch.cuda.is_initialized(),
+               "launches": {k: c.launches - before[k]
+                            for k, c in counters.items()}}
+        path = os.path.join(POOL_DIR, f"{os.getpid()}-{time.time_ns()}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f)
+
+
+class TimedPools:
+    """Stands in for ``sweep.ProcessPoolExecutor`` and keeps, for each
+    pool the sweep creates, the seconds from its creation to the end of
+    its warm-up map (every worker started: spawn, import, a CUDA context
+    each) and to its first finished calibration (the pool's start-up)."""
+
+    def __init__(self, sweep):
+        self.sweep, self.cls = sweep, sweep.ProcessPoolExecutor
+        self.started, self.startup = [], []
+        sweep.ProcessPoolExecutor = self
+
+    def __call__(self, *args, **kw):
+        pool = self.cls(*args, **kw)
+        t0, real_map, maps = time.perf_counter(), pool.map, []
+        started, startup = self.started, self.startup
+
+        def timed_map(*a, **k):
+            maps.append(1)
+            first = len(maps) == 2          # the calibration map
+            for x in real_map(*a, **k):
+                if first:
+                    startup.append(time.perf_counter() - t0)
+                    first = False
+                yield x
+            if len(maps) == 1:
+                started.append(time.perf_counter() - t0)
+
+        pool.map = timed_map
+        return pool
+
+    def restore(self):
+        self.sweep.ProcessPoolExecutor = self.cls
+
+
+class GpuApps:
+    """Polls ``nvidia-smi`` while work runs: the compute processes holding
+    a context on the card (pid and memory) and the card's used memory."""
+
+    def __init__(self, interval: float = 0.5):
+        import threading
+        self.samples, self.used = [], []
+        self.stop_flag = threading.Event()
+        self.thread = threading.Thread(target=self.run, args=(interval,),
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, interval):
+        while not self.stop_flag.is_set():
+            apps = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout
+            used = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout
+            seen = {}
+            for ln in apps.strip().splitlines():
+                parts = [p.strip() for p in ln.split(",")]
+                if len(parts) == 2 and parts[0].isdigit():
+                    seen[int(parts[0])] = parts[1]
+            self.samples.append(seen)
+            if used.strip().splitlines():
+                self.used.append(int(used.strip().splitlines()[0]))
+            self.stop_flag.wait(interval)
+
+    def stop(self) -> dict:
+        self.stop_flag.set()
+        self.thread.join()
+        pids = {}
+        for seen in self.samples:
+            for pid, mem in seen.items():
+                pids.setdefault(pid, mem)
+        return {"pids": pids, "samples": len(self.samples),
+                "most": max((len(s) for s in self.samples), default=0),
+                "used_mib": (self.used[0], max(self.used)) if self.used
+                else None}
+
+
+def host_values(x) -> bool:
+    """Only Python and numpy values (no tensor crossed from a worker)."""
+    import numpy as np
+    if isinstance(x, dict):
+        return all(host_values(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(host_values(v) for v in x)
+    return x is None or isinstance(x, (bool, int, float, str, np.generic,
+                                       np.ndarray))
+
+
+def run_sweep_pool(points, dev, cache: str) -> dict:
+    """Phase 12a: ``points`` through ``sweep.map_points(engine="host",
+    max_lanes=3, fit_engine="bucketed")`` with ``jobs=1`` and with
+    ``jobs=POOL_JOBS``, each from an empty cache root, so that the LERN
+    fit and the deadline calibration run in the leg.  Each leg's kernel
+    launches are counted in the caller (set to 0 just before, read just
+    after) and, on the pool, in each worker's group tasks
+    (``counted_pool_task``); ``nvidia-smi`` is polled while the pool
+    runs.  Returns per leg the results (as dicts), wall, launches, pool
+    start-up seconds, the tasks' records and the polled processes."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.core import lern, sweep
+    from repro_torch.exp import faults
+    counters = pool_counters()
+    legs = {}
+    for jobs in (1, POOL_JOBS):
+        root = f"{cache}_pool{jobs}"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(POOL_DIR, ignore_errors=True)
+        os.makedirs(POOL_DIR)
+        os.environ["REPRO_CACHE"] = root
+        pools = TimedPools(sweep)
+        sweep._pool_task, real_task = counted_pool_task, sweep._pool_task
+        apps = GpuApps() if jobs > 1 else None
+        report = faults.RunReport()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with lern.fit_engine_override("bucketed"):
+                rs = sweep.map_points(points, jobs=jobs, max_lanes=3,
+                                      engine="host", fit_engine="bucketed",
+                                      report=report, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            pools.restore()
+            sweep._pool_task = real_task
+            polled = apps.stop() if apps else None
+        caller = {k: c.launches for k, c in counters.items()}
+        tasks = []
+        for name in sorted(os.listdir(POOL_DIR)):
+            with open(os.path.join(POOL_DIR, name)) as f:
+                tasks.append(json.load(f))
+        legs[jobs] = {"results": [dc.asdict(r) for r in rs], "wall_s": wall,
+                      "caller": caller, "tasks": tasks,
+                      "started_s": pools.started,
+                      "startup_s": pools.startup, "apps": polled,
+                      "events": report.events,
+                      "host_values": all(host_values(dc.asdict(r))
+                                         for r in rs)}
+    return legs
+
+
+def run_pool_chaos(dev, cache: str) -> dict:
+    """Phase 12b: the chaos suite's four points on ``CHAOS_JOBS`` workers
+    under three fault plans -- a ``task`` crash (the pool respawns), a
+    ``task`` hang with the watchdog armed, a ``task`` raise with a
+    ``cache_dump`` corruption in a worker -- each from a cache holding the
+    clean run's artifacts but no result.  Returns the clean ``jobs=1``
+    results and each plan's results, events and wall."""
+    import dataclasses as dc
+    from repro_torch.core import policies, sim, sweep
+    from repro_torch.exp import faults
+    c = CHAOS_POINTS
+    p = sim.SimParams(**c["params"])
+    pts = [sweep.SweepPoint(c["config"], mix, policies.get(n), p)
+           for mix in c["mixes"] for n in c["policies"]]
+    art = f"{cache}_chaos"
+    shutil.rmtree(art, ignore_errors=True)
+    os.environ["REPRO_CACHE"] = art
+    t0 = time.perf_counter()
+    clean = [dc.asdict(r) for r in sweep.map_points(pts, jobs=1, device=dev)]
+    out = {"clean": clean, "clean_s": time.perf_counter() - t0, "plans": {}}
+    shutil.rmtree(os.path.join(art, "torch", "sim"))
+    plans = {
+        "crash": ([{"site": "task", "kind": "crash"}], {}),
+        "hang": ([{"site": "task", "kind": "hang", "seconds": 600.0}],
+                 {"task_timeout": CHAOS_TIMEOUT_S}),
+        "raise + cache_dump corrupt": (
+            [{"site": "task", "kind": "raise"},
+             {"site": "cache_dump", "kind": "corrupt",
+              "match": os.path.basename(pts[0].cache_path())}], {}),
+    }
+    for i, (name, (specs, kw)) in enumerate(plans.items()):
+        root = f"{cache}_chaos{i}"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(art, root)
+        os.environ["REPRO_CACHE"] = root
+        report = faults.RunReport()
+        t0 = time.perf_counter()
+        with faults.activate(faults.FaultPlan.make(specs)):
+            got = sweep.map_points(pts, jobs=CHAOS_JOBS, report=report,
+                                   device=dev, **kw)
+        out["plans"][name] = {"results": [dc.asdict(r) for r in got],
+                              "events": report.events,
+                              "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def check_pool_chaos(r: dict) -> dict:
+    """Each 12b plan bitwise equal to the clean run, with its event: a
+    ``worker_crash`` with a respawn, a ``watchdog_kill``, the ``task`` and
+    ``cache_dump`` faults of the workers tagged ``origin="worker"``."""
+    seen = {}
+    for name, plan in r["plans"].items():
+        ev = plan["events"]
+        if name == "crash":
+            ok = any(e["kind"] == "worker_crash" and e.get("respawn")
+                     for e in ev)
+        elif name == "hang":
+            ok = any(e["kind"] == "watchdog_kill" for e in ev)
+        else:
+            ok = {"task", "cache_dump"} <= {
+                e["site"] for e in ev
+                if e["kind"] == "fault" and e.get("origin") == "worker"}
+        seen[name] = sorted({e["kind"] for e in ev})
+        if plan["results"] != r["clean"] or not ok:
+            raise AssertionError(f"phase 12b {name}: equal to the clean run"
+                                 f" {plan['results'] == r['clean']}, events "
+                                 f"{ev}")
+    return seen
+
+
+def run_phase12(spec6c, system: dict, dev, cache: str, host_6c=None,
+                walls_6c=None) -> None:
+    """Phase 12: 12a (``run_sweep_pool``) on phase 6c's twelve points --
+    both legs bitwise equal to each other, to 6c's host leg
+    (``host_6c``, when given) and, the moti2 six, to the test_system
+    golden; every kernel of the path launched (the caller and the
+    workers' group tasks together), every pool task launching
+    ``llc_rounds``, at least two worker processes holding a context on the
+    card -- then 12b (``run_pool_chaos``).  Raises on failure."""
+    from repro_torch.core import sim
+    t12 = time.time()
+    pts12 = [pt.sweep_point() for pt, _ in spec6c.expand()]
+    r12 = run_sweep_pool(pts12, dev, cache)
+    one, pool = r12[1], r12[POOL_JOBS]
+    for jobs, leg in r12.items():
+        done = [t["launches"] for t in leg["tasks"]]
+        total = {k: leg["caller"][k] + sum(d[k] for d in done)
+                 for k in leg["caller"]}
+        leg["total"] = total
+        log(f"[pool] phase 12a jobs={jobs}: {len(pts12)} points, wall "
+            f"{leg['wall_s']:.2f} s, pool start-up (creation to every "
+            f"worker started {leg['started_s']} s, to the first finished "
+            f"calibration {leg['startup_s']} s), launches in the "
+            f"caller {leg['caller']}, in the workers' group tasks "
+            + "; ".join(f"{t['task']} (pid {t['pid']}): {t['launches']}"
+                        for t in leg["tasks"])
+            + f"; events {[e['kind'] for e in leg['events']]}")
+        if not leg["host_values"]:
+            raise AssertionError(f"phase 12a jobs={jobs}: a result holds a "
+                                 f"tensor")
+        if min(total.get(k, 0) for k in ("ri_histogram", "kmeans_fit",
+                                         "kmeans_assign", "llc_rounds")) < 1:
+            raise AssertionError(f"phase 12a jobs={jobs}: launches {total}")
+    if len(pool["tasks"]) != 4 or any(
+            t["launches"]["llc_rounds"] < 1 for t in pool["tasks"]):
+        raise AssertionError(f"phase 12a: the pool's group tasks "
+                             f"{pool['tasks']}; want four, each launching "
+                             f"llc_rounds")
+    if one["results"] != pool["results"]:
+        raise AssertionError("phase 12a: jobs=1 and the pool differ")
+    if host_6c is not None and one["results"] != host_6c:
+        raise AssertionError("phase 12a: differs from phase 6c's host leg")
+    by = {(r["mix"], r["policy"]): r for r in one["results"]}
+    for name, want in system["points"].items():
+        res = sim.SimResult(**by[(MIX, name)])
+        if json.loads(json.dumps(system_point(res))) != want:
+            raise AssertionError(f"phase 12a {name}: differs from the "
+                                 f"test_system golden")
+    apps = pool["apps"]
+    # the workers that held a context (each reports its own), and what the
+    # card's used memory gained while they ran (nvidia-smi; its list of
+    # compute processes may stand in another pid namespace, and then
+    # shows the container as one entry)
+    workers = {t["pid"] for t in pool["tasks"] if t["cuda"]}
+    first, most = apps["used_mib"] or (0, 0)
+    log(f"[pool] phase 12a: both legs bitwise equal to each other, "
+        + ("to phase 6c's host leg " if host_6c is not None else "")
+        + f"and (the {MIX} six) to the test_system golden; "
+        f"jobs=1 {one['wall_s']:.2f} s, jobs={POOL_JOBS} "
+        f"{pool['wall_s']:.2f} s"
+        + (f" (6c on warm artifacts: host {walls_6c['host']:.2f} s, "
+           f"bucketed {walls_6c['bucketed, pipeline on']:.2f} s)"
+           if walls_6c else "")
+        + f"; os.cpu_count() {os.cpu_count()}; group tasks on the workers "
+        f"(pids) {sorted(workers)}, each with a CUDA context; nvidia-smi "
+        f"over {apps['samples']} polls: the card's used memory {first} MiB "
+        f"before the workers, at most {most} MiB with them ("
+        f"{(most - first) / POOL_JOBS:.0f} MiB a worker), compute "
+        f"processes (pid: MiB) {apps['pids']} (this script's pid "
+        f"{os.getpid()}; at most {apps['most']} at once)")
+    if len(workers) < 2 or not most > first:
+        raise AssertionError(f"phase 12a: workers with a context "
+                             f"{sorted(workers)}, the card's used memory "
+                             f"{apps['used_mib']}; want two or more, and a "
+                             f"rise")
+    r12b = run_pool_chaos(dev, cache)
+    seen = check_pool_chaos(r12b)
+    log(f"[pool] phase 12b: the chaos suite's four points on {CHAOS_JOBS} "
+        f"workers, each plan bitwise equal to the clean jobs=1 run "
+        f"({r12b['clean_s']:.2f} s from an empty cache): " + "; ".join(
+            f"{name} {plan['wall_s']:.2f} s, events {seen[name]}"
+            for name, plan in r12b["plans"].items())
+        + f"; watchdog {CHAOS_TIMEOUT_S} s")
+    log(f"[pool] phase 12: {time.time() - t12:.1f} s; {nvidia_smi()}")
+
+
 def profile_decode(eng, dev, steps: int = 4) -> dict:
     """``torch.profiler`` over a few more decode steps of the finished
     engine (its stats are already taken): device time against wall time
@@ -2637,6 +3001,11 @@ def main() -> int:
         f"(enqueue + one read), device busy {bz['device_ms']:.2f} ms "
         f"({bz['device_ms'] / bz['wall_ms']:.1%}), {bz['kernels']:.0f} "
         f"kernels a super-step; phase {time.time() - t0:.1f} s; {nvidia_smi()}")
+
+    # 12. the sweep process pool: phase 6c's points on POOL_JOBS workers
+    # against the inline run, then the chaos suite's plans on the card
+    run_phase12(spec6c, system, dev, cache, host_6c=runs6c["host"],
+                walls_6c=walls6c)
 
     # 3b. the kernels at the shapes the paths handed them
     kernels = []

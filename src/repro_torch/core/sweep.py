@@ -19,11 +19,16 @@ x DRAM/LLC variants -- and this module batches it at two levels:
   bitwise (tests/test_torch_bucketed.py).  A bucket that fails degradably
   (an injected fault, the card out of memory) walks the ladder bucketed ->
   per-group fused -> host, recomputing the groups from fresh lanes.
-* **Across groups, in turn** ``map_points`` runs the groups one after the
-  other.  Both share the front half (``_plan_tasks``): the sim disk cache
-  as the dedup layer (cached points are skipped up front, duplicate
-  points are computed once, finished groups are written back with atomic
-  renames) and the deadline calibrations, one per (config, params, dram).
+* **Across groups, across processes** ``map_points`` runs the groups in
+  turn (``jobs <= 1``) or fans them over a spawn process pool of ``jobs``
+  workers (``_run_pool``): retry with backoff, a respawn of the pool when
+  a worker dies, a wall-clock watchdog (``task_timeout``), and a last
+  attempt in the caller on the host engine.  Both share the front half
+  with ``run_bucketed`` (``_plan_tasks``): the sim disk cache as the dedup
+  layer (cached points are skipped up front, duplicate points are
+  computed once, finished groups are written back with atomic renames,
+  so concurrent workers never see a torn entry) and the deadline
+  calibrations, one per (config, params, dram), computed first.
 
 ``engine="fused"`` drives each geometry batch through the device-resident
 epoch engine (``core/fused.py``): integer stats bitwise, floats within
@@ -32,21 +37,24 @@ bucketed engine is a plan-level engine (``exp.ExecPlan``):
 ``simulate_group`` and ``map_points`` reject it as an unknown engine, as
 the JAX package's do.
 
-Not ported yet (ROADMAP.md Queue 1): the spawn process pool with its
-retry, respawn and watchdog (item 11), and sharding a bucket's groups over
-several cards (item 14).  Asking for them raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md Queue 1): sharding a bucket's groups over
+several cards (item 14).  Asking for it raises ``NotImplementedError``.
 
 Every entry point takes ``device=`` (default: the card) for the LLC
-state and the LERN fits.
+state and the LERN fits.  The pool's workers share the caller's device:
+each opens its own CUDA context on it (the card time-slices them), and
+the kernels are built in the caller before the pool starts.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
 import time
 from collections import OrderedDict
+from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,8 +79,12 @@ STAGE_CACHE_CAP = int(os.environ.get("REPRO_STAGE_CACHE", "32"))
 _STAGE_CACHE: "OrderedDict[Tuple, object]" = OrderedDict()
 # A failing group task is retried TASK_RETRIES times with exponential
 # backoff (base RETRY_BACKOFF seconds, doubled per attempt, capped at 5 s)
-# before a last attempt on the host engine.
+# before a last attempt on the host engine (in the caller, for a pool
+# task).  TASK_TIMEOUT > 0 arms a per-task wall-clock watchdog on the
+# pool: overrunning workers are killed, the pool respawned, and the
+# in-flight survivors re-dispatched.
 TASK_RETRIES = int(os.environ.get("REPRO_TASK_RETRIES", "2"))
+TASK_TIMEOUT = float(os.environ.get("REPRO_TASK_TIMEOUT", "0"))
 RETRY_BACKOFF = float(os.environ.get("REPRO_RETRY_BACKOFF", "0.25"))
 
 _ENGINES = ("auto", "host", "fused")
@@ -425,14 +437,54 @@ def simulate_bucket(tasks: Sequence[Tuple], devices: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# cross-group orchestration (disk-cache dedup)
+# cross-group orchestration (process pool + disk-cache dedup)
 # ---------------------------------------------------------------------------
 def _params_key(p: sim.SimParams, dram: DramModel) -> str:
     return json.dumps({"par": dataclasses.asdict(p), "d": dram.name},
                       sort_keys=True, default=str)
 
 
-def _calibrate_task(task, dev: torch.device) -> float:
+# the start barrier of the pool a worker belongs to (set in _worker_init)
+_START = None
+
+
+def _worker_init(cache_root: str, extra_configs: Optional[Dict] = None,
+                 fit_engine: Optional[str] = None, device: str = "cuda",
+                 threads: Optional[int] = None, start=None) -> None:
+    """Spawn-pool worker set-up.  ``cache_root`` carries a programmatic
+    cache override (``REPRO_CACHE`` set after the caller's import) to the
+    worker's artifact and result caches; ``fit_engine`` pins the LERN fit
+    engine (a worker does not see the caller's ``lern.fit_engine_override``);
+    configs registered at run time in the caller are registered again
+    (spawn imports ``workloads.py`` afresh).  The worker opens its own
+    CUDA context on the caller's ``device`` here, takes the caller's
+    intra-op thread count (``threads``) and keeps the pool's ``start``
+    barrier for ``_worker_started``."""
+    global _START
+    _START = start
+    os.environ["REPRO_CACHE"] = cache_root
+    if threads is not None:
+        torch.set_num_threads(threads)
+    if fit_engine is not None:
+        from . import lern as lern_mod
+        lern_mod.FIT_ENGINE = fit_engine
+    if extra_configs:
+        from .workloads import CONFIGS
+        for name, cfg in extra_configs.items():
+            CONFIGS.setdefault(name, cfg)
+    dev = _device.resolve(device)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+
+
+def _worker_started(_i: int) -> int:
+    """A pool's warm-up task: returns (the worker's pid) once every worker
+    of the pool has started and holds one such task."""
+    _START.wait()
+    return os.getpid()
+
+
+def _calibrate_task(task, dev) -> float:
     config, params, dram = task
     return sim.calibrated_deadline(config, params, dram, device=dev)
 
@@ -465,6 +517,35 @@ def _group_task(task, engine: str, dev: torch.device) -> List[sim.SimResult]:
     for res, path in zip(results, paths):
         sim._atomic_dump(res, path)
     return results
+
+
+class TaskError(RuntimeError):
+    """Picklable worker-task failure carrying the worker's buffered fault
+    events (quarantines, injections) back to the caller, so that a failed
+    task still adds its fault log to the RunReport."""
+
+    def __init__(self, cause: str, msg: str, events: List[Dict]):
+        super().__init__(f"{cause}: {msg}")
+        self.cause = cause
+        self.events = events
+
+    def __reduce__(self):
+        return (TaskError, (self.cause,
+                            str(self).split(": ", 1)[-1], self.events))
+
+
+def _pool_task(task, engine: str, device: str):
+    """A pool worker's group task on ``device``: a worker has no active
+    RunReport, so its fault events buffer locally; the buffer is drained
+    and sent back with the results (or inside :class:`TaskError`), and the
+    caller folds it into its report."""
+    flt = _faults()
+    try:
+        results = _group_task(task, engine, _device.resolve(device))
+    except Exception as e:
+        raise TaskError(type(e).__name__, str(e)[:500],
+                        flt.drain_events()) from None
+    return results, flt.drain_events()
 
 
 def _plan_tasks(points: Sequence[SweepPoint], max_lanes: int,
@@ -549,44 +630,235 @@ def _run_task_inline(task, engine: str, retries: int,
             time.sleep(min(RETRY_BACKOFF * 2 ** (attempts - 1), 5.0))
 
 
+def _run_pool(tasks, calib, engine: str, fit_engine: Optional[str],
+              jobs: int, timeout: float, retries: int,
+              dev: torch.device) -> List[Tuple]:
+    """Spawn-pool execution of the group tasks on ``dev`` with the whole
+    recovery stack: per-task retry with backoff, ``BrokenProcessPool``
+    detection with a respawn of the pool and re-dispatch of the survivors,
+    a wall-clock watchdog that kills overrunning workers (``timeout`` > 0),
+    and a last attempt in the caller on the host engine once a task has
+    used its retries.  Every attempt runs on ``dev`` with the same kernels,
+    so a kernel that fails to build or launch fails the run.  A task that
+    raises ``NotImplementedError`` is not retried: it raises here.
+    Returns per-task ``(results, attempts, engine)`` in task order."""
+    import multiprocessing as mp
+    from concurrent.futures import FIRST_COMPLETED, wait
+    from concurrent.futures.process import BrokenProcessPool
+
+    from .workloads import CONFIGS
+
+    flt = _faults()
+    if dev.type == "cuda":
+        # every library once, here: workers only load them, so that no
+        # nvcc runs against a watchdog clock in N workers at once
+        from ..kernels import _build
+        _build.build()
+    # spawn, never fork: the caller may already hold a CUDA context
+    ctx = mp.get_context("spawn")
+    workers = min(jobs, len(tasks))
+    # each task's config: runtime registrations (drift variants, ad-hoc
+    # AccelConfigs) do not survive the spawn import
+    extra = {t[0]: CONFIGS[t[0]] for t in tasks}
+    initargs = (os.path.dirname(sim.cache_dir()), extra, fit_engine,
+                str(dev), torch.get_num_threads())
+    run_task = functools.partial(_pool_task, engine=engine, device=str(dev))
+    calibrate = functools.partial(_calibrate_task, dev=str(dev))
+
+    results: List[Optional[Tuple]] = [None] * len(tasks)
+    attempts = [0] * len(tasks)
+    pending: List[int] = list(range(len(tasks)))
+    running: Dict = {}          # future -> task index
+    deadlines: Dict = {}        # future -> monotonic watchdog deadline
+    ex: Optional[ProcessPoolExecutor] = None
+
+    def discard_pool(kill: bool = False) -> None:
+        nonlocal ex
+        if ex is None:
+            return
+        if kill:
+            # a hung or wedged worker never drains the shutdown sentinel:
+            # kill every worker, so that shutdown cannot block behind one
+            for proc in list(getattr(ex, "_processes", {}).values()):
+                try:
+                    proc.kill()
+                except Exception:
+                    pass
+        ex.shutdown(wait=False, cancel_futures=True)
+        ex = None
+
+    def start_pool() -> None:
+        nonlocal ex
+        start = ctx.Barrier(workers)
+        ex = ProcessPoolExecutor(max_workers=workers, mp_context=ctx,
+                                 initializer=_worker_init,
+                                 initargs=initargs + (start,))
+        # the executor starts a spawn worker only when a task finds none
+        # idle, so one warm-up task a worker, each held at the barrier
+        # until all have started: every worker is up (its CUDA context
+        # open) before the first group task, and the watchdog clock times
+        # work, not start-up.  A pool that cannot start raises here.
+        list(ex.map(_worker_started, range(workers)))
+
+    def new_pool() -> None:
+        start_pool()
+        # the deadline calibrations next, one task per unique (config,
+        # params, dram), before any group task; they land in the disk
+        # cache, so the run after a respawn only reads them
+        try:
+            list(ex.map(calibrate, calib.values()))
+        except Exception as e:
+            flt.log_event("calibration_fallback", error=str(e)[:200])
+            discard_pool(kill=True)
+            for t in calib.values():
+                _calibrate_task(t, dev)
+            start_pool()
+
+    def handle_failure(i: int, kind: str, err: str) -> None:
+        if attempts[i] > retries:
+            # the retries are spent: a last attempt in the caller, on the
+            # host engine and the same device
+            flt.log_event("inline_fallback",
+                          task=f"{tasks[i][0]}|{tasks[i][1]}",
+                          attempts=attempts[i], cause=kind)
+            attempts[i] += 1
+            results[i] = (_group_task(tasks[i], "host", dev), attempts[i],
+                          "host")
+        else:
+            flt.log_event("task_retry", task=f"{tasks[i][0]}|{tasks[i][1]}",
+                          attempt=attempts[i], cause=kind, error=err[:200])
+            time.sleep(min(RETRY_BACKOFF * 2 ** (attempts[i] - 1), 5.0))
+            pending.append(i)
+
+    try:
+        while pending or running:
+            if ex is None and pending:
+                new_pool()
+            # one in-flight task per worker: with nothing queued in the
+            # executor, a submitted future is running, so the watchdog
+            # clock measures work, not queue wait
+            while pending and len(running) < workers:
+                i = pending.pop(0)
+                attempts[i] += 1
+                fut = ex.submit(run_task, tasks[i])
+                running[fut] = i
+                if timeout > 0:
+                    deadlines[fut] = time.monotonic() + timeout
+            done, _ = wait(set(running), return_when=FIRST_COMPLETED,
+                           timeout=0.25 if timeout > 0 else None)
+            pool_broken = False
+            for fut in done:
+                i = running.pop(fut)
+                deadlines.pop(fut, None)
+                try:
+                    rs, wevents = fut.result()
+                    flt.merge_events(wevents)
+                    results[i] = (rs, attempts[i], engine)
+                    continue
+                except BrokenProcessPool as e:
+                    pool_broken = True
+                    kind, err = "worker_crash", str(e)
+                except TaskError as e:
+                    flt.merge_events(e.events)
+                    if e.cause == "NotImplementedError":
+                        raise NotImplementedError(
+                            str(e).split(": ", 1)[-1]) from None
+                    kind, err = "task_error", str(e)
+                except Exception as e:
+                    kind, err = "task_error", str(e)
+                handle_failure(i, kind, err)
+            if pool_broken:
+                # a worker died mid-task and every in-flight future is
+                # lost with it: respawn the pool and re-dispatch the
+                # survivors without charging their retries
+                flt.log_event("worker_crash", respawn=True,
+                              inflight=len(running))
+                for fut, i in list(running.items()):
+                    attempts[i] -= 1
+                    pending.append(i)
+                running.clear()
+                deadlines.clear()
+                discard_pool(kill=True)
+                continue
+            now = time.monotonic()
+            overdue = [fut for fut, dl in deadlines.items()
+                       if dl < now and not fut.done()]
+            if overdue:
+                # the watchdog: the pool cannot kill one worker, so kill
+                # them all, fail the overdue tasks, and re-dispatch the
+                # innocent in-flight survivors without charging them
+                over_idx = {running[fut] for fut in overdue}
+                flt.log_event(
+                    "watchdog_kill", timeout=timeout,
+                    tasks=[f"{tasks[i][0]}|{tasks[i][1]}"
+                           for i in sorted(over_idx)])
+                discard_pool(kill=True)
+                survivors = [i for fut, i in running.items()
+                             if i not in over_idx]
+                running.clear()
+                deadlines.clear()
+                for i in survivors:
+                    attempts[i] -= 1
+                    pending.append(i)
+                for i in sorted(over_idx):
+                    handle_failure(i, "watchdog", "task exceeded "
+                                   f"{timeout}s wall clock")
+    finally:
+        discard_pool(kill=bool(running))
+    return results  # every slot is a (results, attempts, engine) triple
+
+
 def map_points(points: Sequence[SweepPoint], jobs: int = 1,
                max_lanes: int = MAX_LANES, engine: str = "host",
-               report=None, retries: Optional[int] = None,
+               fit_engine: Optional[str] = None,
+               report=None, task_timeout: Optional[float] = None,
+               retries: Optional[int] = None,
                device="cuda") -> List[sim.SimResult]:
-    """Evaluate a list of sweep points on ``device``, batched, with the
-    sim disk cache as the dedup layer.
+    """Evaluate a list of sweep points on ``device``, batched and
+    (optionally) in parallel, with the sim disk cache as the dedup layer.
 
     Cached points are loaded and skipped; duplicate points run once; the
-    rest are grouped by (config, mix, params, dram), chunked into <=
-    ``max_lanes`` policy lanes and run in turn (``jobs`` must be 1: the
-    process pool is ROADMAP.md Queue 1 item 11).  Uncached LERN models
-    train first, family-batched.  Every finished point is written to the
-    cache atomically; the LERN fit engine is the ambient one
-    (``lern.fit_engine_override``).  ``report`` (a ``faults.RunReport``)
-    receives per-point records
-    and fault/recovery events; a failing group retries ``retries`` times
-    (default ``REPRO_TASK_RETRIES``).  Returns results in ``points``
-    order.
+    rest are grouped by (config, mix, params, dram) and chunked into <=
+    ``max_lanes`` policy lanes.  Uncached LERN models train first,
+    family-batched, in the caller.  The groups run in turn for ``jobs <=
+    1`` or a single group, else on a spawn process pool of ``jobs``
+    workers, each on ``device`` (``fit_engine`` pins the LERN fit engine
+    inside the workers; in the caller it is the ambient one,
+    ``lern.fit_engine_override``).  Every finished point is written to the
+    cache atomically.  ``report`` (a ``faults.RunReport``) receives
+    per-point records and every fault/recovery event, the workers' too.
+    Returns results in ``points`` order.
+
+    Execution is resilient: a failing group retries ``retries`` times
+    (default ``REPRO_TASK_RETRIES``) with exponential backoff, then runs
+    once more on the host engine; on the pool a dead worker respawns the
+    pool and re-dispatches the in-flight survivors, and ``task_timeout``
+    (default ``REPRO_TASK_TIMEOUT``, 0 = off) arms a per-task wall-clock
+    watchdog.  Recovery recomputes from cached artifacts, so results stay
+    bitwise equal to a fault-free run.
 
     ``engine`` defaults to ``"host"`` where the reference
     (``repro.core.sweep.map_points``) defaults to ``"auto"``, for the
     reason ``simulate_group`` gives: equal results, and the host engine is
     the faster one on the card."""
     _check_engine(engine)
-    if jobs > 1:
-        raise NotImplementedError(
-            f"jobs={jobs}: the process pool (retry, respawn, watchdog) is "
-            "not ported yet (ROADMAP.md Queue 1 item 11); use jobs=1")
     dev = _device.resolve(device)
     flt = _faults()
     retries = TASK_RETRIES if retries is None else retries
+    timeout = TASK_TIMEOUT if task_timeout is None else task_timeout
     with flt.activate(), flt.reporting(report):
-        results, tasks, task_idxs, task_keys, _calib, seen_paths = \
+        results, tasks, task_idxs, task_keys, calib, seen_paths = \
             _plan_tasks(points, max_lanes, cache=True)
         if tasks:
             _prepare_lern(tasks, dev)
-            for task, idxs, keys in zip(tasks, task_idxs, task_keys):
-                rs, n_att, eng = _run_task_inline(task, engine, retries, dev)
+            if jobs <= 1 or len(tasks) == 1:
+                task_results = [_run_task_inline(t, engine, retries, dev)
+                                for t in tasks]
+            else:
+                task_results = _run_pool(tasks, calib, engine, fit_engine,
+                                         jobs, timeout, retries, dev)
+            for idxs, keys, (rs, n_att, eng) in zip(task_idxs, task_keys,
+                                                    task_results):
                 for idx, res in zip(idxs, rs):
                     results[idx] = res
                 for key in keys:

@@ -21,7 +21,7 @@ the environment for the duration.
 Sites instrumented in the port (the JAX package's, all of them):
 
 ==================  =====================================================
-``task``            inside ``sweep._group_task`` (inline group tasks)
+``task``            inside ``sweep._group_task`` (inline and pool tasks)
 ``cache_read``      ``sim.cache_load`` — damages the entry on disk first
 ``cache_dump``      ``sim._atomic_dump`` — corrupt/truncate/torn writes
 ``stage_evict``     ``sweep._staged_for`` — drops the staging cache

@@ -10,8 +10,8 @@ Fields left ``None`` resolve to the environment defaults, so
 Engine names (the JAX package's set):
 
 * ``"auto"``    -- the bucketed engine when ``jobs <= 1`` (the default);
-  with ``jobs > 1`` the process pool, which is not ported yet (ROADMAP.md
-  Queue 1 item 11).
+  with ``jobs > 1`` the process pool of ``sweep.map_points``, each group
+  on the fused engine where it can take it, else the host loop.
 * ``"host"``    -- the lane-batched per-epoch host loop
   (``sweep.simulate_group``) for each group.
 * ``"fused"``   -- the device-resident super-step engine
@@ -43,7 +43,7 @@ class ExecPlan:
     engine:     "auto" | "host" | "fused" | "bucketed" (default: env
                 ``REPRO_ENGINE``; legacy ``REPRO_FUSED=0`` means "host";
                 else "auto")
-    jobs:       process-pool width (default 1; > 1 is not ported yet, and
+    jobs:       process-pool width of ``sweep.map_points`` (default 1;
                 the bucketed engine ignores it)
     devices:    cards for the bucketed engine (default None: the one
                 card; > 1 is ROADMAP.md Queue 1 item 14 and raises)

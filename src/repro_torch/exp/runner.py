@@ -3,12 +3,11 @@ public entry point for evaluating anything on the port.
 
 ``engine="bucketed"``, and the ``"auto"`` default with ``jobs <= 1``, runs
 the whole sweep at once through ``sweep.run_bucketed`` (buckets of groups
-as one flat lane batch on the card).  ``host`` and ``fused`` go through
-``sweep.map_points`` (lane-batched ``simulate_group`` + disk-cache dedup);
-with the cache off, through ``simulate_group`` per (config, mix, params,
-dram) group.  The JAX package's process pool (``jobs > 1``) is not ported
-yet: asking for it raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 11).
+as one flat lane batch on the card).  ``host`` and ``fused`` (and
+``"auto"`` with ``jobs > 1``) go through ``sweep.map_points``
+(lane-batched ``simulate_group`` + disk-cache dedup, on a spawn process
+pool of ``jobs`` workers when ``jobs > 1``); with the cache off, through
+``simulate_group`` per (config, mix, params, dram) group in the caller.
 """
 from __future__ import annotations
 
@@ -72,18 +71,15 @@ def run_points(points: Sequence[Point], plan: Optional[ExecPlan] = None,
                device="cuda") -> List[sim.SimResult]:
     """Evaluate resolved points in order on ``device``; the engine behind
     ``run``.  ``engine="bucketed"`` (and ``"auto"`` with ``jobs <= 1``)
-    runs the points through ``sweep.run_bucketed``; ``host`` and ``fused``
-    through ``sweep.map_points``.  ``plan.fit_engine`` pins the LERN fit
-    engine for the run, ``plan.faults`` activates a deterministic
-    fault-injection plan, and ``report`` collects per-point completion
-    records and fault/recovery events."""
+    runs the points through ``sweep.run_bucketed``; the other plans
+    through ``sweep.map_points`` with ``plan.jobs`` workers.
+    ``plan.fit_engine`` pins the LERN fit engine for the run (in the pool's
+    workers too), ``plan.faults`` activates a deterministic fault-injection
+    plan, and ``report`` collects per-point completion records and
+    fault/recovery events."""
     rp = (plan or ExecPlan()).resolve()
     bucketed = rp.engine == "bucketed" or (rp.engine == "auto"
                                            and rp.jobs <= 1)
-    if not bucketed and rp.jobs > 1:
-        raise NotImplementedError(
-            f"jobs={rp.jobs}: the process pool is not ported yet "
-            "(ROADMAP.md Queue 1 item 11); use jobs=1")
     dev = _device.resolve(device)
     sps = [p.sweep_point() for p in points]
     with lern_mod.fit_engine_override(rp.fit_engine), \
@@ -95,8 +91,9 @@ def run_points(points: Sequence[Point], plan: Optional[ExecPlan] = None,
                                       pipeline=rp.pipeline, report=report,
                                       device=dev)
         if rp.cache:
-            return sweep.map_points(sps, max_lanes=rp.max_lanes,
-                                    engine=rp.engine, report=report,
+            return sweep.map_points(sps, jobs=rp.jobs, max_lanes=rp.max_lanes,
+                                    engine=rp.engine,
+                                    fit_engine=rp.fit_engine, report=report,
                                     device=dev)
         return _run_points_uncached(points, rp, dev)
 

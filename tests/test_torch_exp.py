@@ -11,8 +11,8 @@
   gives the cached path's results.
 * ``ExecPlan`` resolution: ``"auto"`` stays ``"auto"`` and ``run_points``
   sends it (``jobs=1``) to ``sweep.run_bucketed``; the bucketed plans run
-  and give the host plan's results; ``jobs > 1`` raises
-  ``NotImplementedError``.
+  and give the host plan's results; ``jobs=2`` runs through the process
+  pool of ``sweep.map_points`` and gives them too.
 """
 import dataclasses
 import json
@@ -155,17 +155,24 @@ def test_exec_plan_resolution(port_cache, monkeypatch):
     (dict(engine="bucketed", fit_engine="segmented"), "item 10"),
     (dict(jobs=2), "item 11")])
 def test_unported_plans_raise(tmp_path, monkeypatch, plan, item):
-    """Item 10's bucketed plans are ported: they run (from an empty
-    cache) and give the host plan's results.  Item 11's process pool
-    (``jobs > 1``) still raises."""
+    """Item 10's bucketed plans and item 11's process pool are ported:
+    each plan runs (from an empty cache) and gives the host plan's
+    results.  ``ExecPlan(jobs=2)`` is ``"auto"`` with ``jobs > 1``, not
+    the bucketed route: ``sweep.map_points(jobs=2)`` runs the spec's two
+    group tasks on two workers (on the CPU here)."""
     monkeypatch.setenv("REPRO_CACHE", str(tmp_path))
-    if item == "item 11":
-        with pytest.raises(NotImplementedError, match=item):
-            exp.run(_tiny_spec(), plan=exp.ExecPlan(**plan), device="cpu")
-        return
+    calls = []
+    real = sweep.map_points
+    monkeypatch.setattr(sweep, "map_points", lambda *a, **kw: (
+        calls.append(kw), real(*a, **kw))[1])
     rs = exp.run(_tiny_spec(), plan=exp.ExecPlan(**plan), device="cpu")
-    assert {r["engine"] for r in rs.run_report.points.values()} == \
-        {"bucketed"}
+    engines = {r["engine"] for r in rs.run_report.points.values()}
+    if item == "item 11":
+        assert [(kw["jobs"], kw["engine"]) for kw in calls] == \
+            [(2, "auto")]
+        assert engines == {"auto"}
+    else:
+        assert not calls and engines == {"bucketed"}
     host = exp.run(_tiny_spec(), plan=exp.ExecPlan(engine="host",
                                                    cache=False),
                    device="cpu")

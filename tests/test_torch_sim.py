@@ -38,6 +38,11 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
 * ``bucketed`` -- the JAX package's ``sweep.run_bucketed`` on the
                 ``BUCKET_SWEEP`` points with the result cache off
                 (``tests/test_torch_bucketed.py``), pickled.
+* ``chaos``  -- the JAX package's ``sweep.map_points(jobs=1)`` on the
+                chaos suite's four tiny points (``CHAOS``; the clean
+                baseline of ``tests/test_faults.py``), from an empty cache,
+                pickled: what ``tests/test_torch_faults.py`` holds the
+                port's inline and pool runs to under every fault plan.
 * ``sched``  -- fig. 17's scheduler comparison cell (``SCHED_CELL``) through
                 ``exp.run`` on the host and fused engines, as JSON: what
                 ``chip_smoke.py`` phase 10 holds the card to.  Regenerate
@@ -141,6 +146,10 @@ FUSED_CASES = (
 BUCKET_SWEEP = dict(config="config1", mixes=("moti1", "moti2"),
                     policies=("fifo-nb", "arp-cs-as", "hydra"),
                     max_epochs=(40, 25))
+# tests/test_faults.py's four points: config1, two mixes x two policies
+# at the tiny point
+CHAOS = dict(config="config1", mixes=("moti1", "moti2"),
+             policies=("fifo-nb", "arp-cs-as"))
 # fig. 17's scheduler comparison (benchmarks/fig17_ddr.py:43-47) on its
 # smoke footprint's mix, with two of its policies, at the full preset
 SCHED_CELL = dict(config="config1", mix="moti1", policies=("hydra",
@@ -232,6 +241,13 @@ def bucket_sweep_points(sim, sweep, policies):
                              sim.SimParams(**dict(TINY, max_epochs=epochs)))
             for mix in c["mixes"] for epochs in c["max_epochs"]
             for name in c["policies"]]
+
+
+def chaos_points(sim, sweep, policies, mixes=CHAOS["mixes"]):
+    """The chaos suite's points (mix-major), for either package."""
+    p = sim.SimParams(**TINY)
+    return [sweep.SweepPoint(CHAOS["config"], mix, policies.get(n), p)
+            for mix in mixes for n in CHAOS["policies"]]
 
 
 def sched_spec(exp):
@@ -799,6 +815,11 @@ def _child_main(mode: str, out: str) -> None:
         from repro.core import sweep
         rs = sweep.run_bucketed(bucket_sweep_points(sim, sweep, policies),
                                 cache=False)
+        with open(out, "wb") as f:
+            pickle.dump([dataclasses.asdict(r) for r in rs], f)
+    elif mode == "chaos":
+        from repro.core import sweep
+        rs = sweep.map_points(chaos_points(sim, sweep, policies), jobs=1)
         with open(out, "wb") as f:
             pickle.dump([dataclasses.asdict(r) for r in rs], f)
     elif mode == "sched":

@@ -9,7 +9,9 @@
   ``tests/test_sweep.py`` point.
 * ``sweep.map_points``: results in point order, twins computed once,
   a second call served from the cache; it and ``simulate_group`` reject
-  the plan-level ``"bucketed"`` engine.
+  the plan-level ``"bucketed"`` engine; ``jobs=2`` on a single group runs
+  it in the caller, as the JAX package's does (the process pool itself:
+  tests/test_torch_faults.py).
 """
 import dataclasses
 
@@ -149,11 +151,13 @@ def test_map_points_order_cache_and_dedup(port_cache, monkeypatch):
     assert dataclasses.asdict(got[1]) == dataclasses.asdict(want[1])
 
 
-def test_unported_engines_raise(port_cache):
+def test_unported_engines_raise(port_cache, monkeypatch):
     """The bucketed engine is a plan-level engine (``sweep.run_bucketed``,
     tests/test_torch_bucketed.py): ``map_points`` and ``simulate_group``
     reject it as an unknown engine, as the JAX package's do, before any
-    work.  The process pool (item 11) is not ported yet."""
+    work.  The process pool is ported (item 11): with one group task,
+    ``jobs=2`` runs it in the caller, as the JAX package's ``map_points``
+    does, and gives the ``jobs=1`` result."""
     config, mix, pols, p = _port_group(0)
     pt = [sweep.SweepPoint(config, mix, pols[0], p)]
     with pytest.raises(ValueError, match="unknown engine 'bucketed'"):
@@ -162,5 +166,11 @@ def test_unported_engines_raise(port_cache):
         sweep.simulate_group(config, mix, pols, p, engine="bucketed",
                              device="cpu")
     assert not any(port_cache.rglob("*.pkl"))      # nothing ran
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sweep.map_points(pt, jobs=2, device="cpu")
+    pools = []
+    monkeypatch.setattr(sweep, "_run_pool",
+                        lambda *a, **kw: pools.append(a) or [])
+    (two,) = sweep.map_points(pt, jobs=2, device="cpu")
+    assert not pools                               # one task: inline
+    monkeypatch.setenv("REPRO_CACHE", str(port_cache / "jobs1"))
+    (one,) = sweep.map_points(pt, jobs=1, device="cpu")
+    assert dataclasses.asdict(two) == dataclasses.asdict(one)
