@@ -74,7 +74,20 @@ port's two paths at full size, each with the kernels' launch counts set to
   pool's start-up; 12b, the chaos suite's four tiny points on two workers
   under a crash (the pool respawns), a hang with the watchdog armed and a
   raise with a corrupted commit, each bitwise equal to the clean run and
-  with its event logged.
+  with its event logged;
+* phase 13, training: 13a qwen3-1.7b at full width (28 layers, weights
+  from a seeded generator on the card) through ``make_train_step(remat=
+  True)`` on ``DataPipeline`` batches at B=1, S=4096 (the ``train_4k``
+  shape, its global batch cut to 1): a warm step, then three timed steps
+  with their tokens/s, losses, grad norms, lr and the peak memory beside
+  the step's bound, every leaf changed by the first step with lr > 0, no
+  flash launch (training takes the dense route); 13g the model at full
+  width with 2 layers on ``convert.lm_numpy_params`` held to the JAX
+  package's training golden (``src/repro_torch/golden/
+  qwen3_1_7b_w2_train.json``: step 0's per-leaf gradient norms and three
+  steps' loss, grad norm and lr); 13r the ``Trainer`` at the reduced
+  config resumed at step 10 equal to 15 straight steps within rel 1e-4,
+  and a checkpoint the port wrote restored onto the card bit for bit.
 
 Flash attention has two kernels (``ops.route``): bf16 goes to the Hopper
 kernel (``wgmma`` for both products, a TMA-fed K/V ring, a producer
@@ -161,6 +174,7 @@ SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
 LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
 SCHED = os.path.join(GOLDEN_DIR, "config1_sched.json")
 SERVE_REPLAY = os.path.join(GOLDEN_DIR, "serve_replay_full.json")
+TRAIN_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_train.json")
 # phase walls before the round loop became a kernel (the last two runs of
 # this script before it did, on an NVIDIA H100 80GB HBM3 at 700.00 W;
 # PERF.md section 5)
@@ -194,6 +208,12 @@ FLASH_EDGE = (((1, 100, 100, 2, 2, 64), True),
               ((1, 100, 100, 2, 2, 64), False),
               ((2, 128, 384, 4, 2, 128), False),
               ((1, 4096, 4096, 16, 8, 64), True))
+
+# phase 13a: qwen3-1.7b train steps at the train_4k shape (S=4096) with
+# its global batch cut from 256 to 1; lr_warmup=1, so step 0 has lr 0 and
+# the next steps move the weights
+TRAIN_FULL = dict(batch=1, seq=4096, lr_peak=3e-4, lr_warmup=1,
+                  timed_steps=3)
 
 
 def log(*a):
@@ -1712,6 +1732,277 @@ def run_engine(cfg, params, golden_serve: dict, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+def train_bars(golden: dict) -> dict:
+    """The training golden's bars: twice the JAX package's own dense-
+    versus-chunked gap (``ref_gap``), with floors of 1e-3 for the loss and
+    2e-2 for the gradients (tests/test_torch_train.py)."""
+    g = golden["ref_gap"]
+    return {"loss": max(2 * g["loss"], 1e-3), "grad": max(2 * g["grad"],
+                                                          2e-2)}
+
+
+def train_step_bound(cfg, params, b, s, ce_chunk=1024) -> dict:
+    """The least time of one ``make_train_step(remat=True)`` step, worked
+    out from the code: the layers' products and the dense route's scores
+    and P V (bf16 on the tensor cores) four times over (forward, the
+    remat recompute, a backward of twice the forward); the f32 lm head
+    (TF32 off) four times over as well (each cross-entropy chunk is
+    recomputed); and the AdamW update's bytes (each parameter, gradient
+    and moment read once, each parameter and moment written once).  The
+    three parts run one after the other, so their times add."""
+    d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head,
+                        cfg.d_ff)
+    tokens = b * s
+    weights = d * h * hd * 2 + d * hkv * hd * 2 + 3 * d * f
+    layer = 2 * tokens * weights + 2 * 2 * b * h * s * s * hd
+    bf16_ops = 4 * cfg.n_layers * layer
+    f32_ops = 4 * 2 * tokens * cfg.vocab * d
+    adam_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                     for p in params.parameters())
+    parts = {"bf16_s": bf16_ops / BF16_FLOPS, "f32_s": f32_ops / FP32_FLOPS,
+             "adamw_s": adam_bytes / HBM_BYTES_PER_S}
+    return dict(parts, bound_s=sum(parts.values()), bf16_ops=bf16_ops,
+                f32_ops=f32_ops, adam_bytes=adam_bytes)
+
+
+def run_train_full(dev) -> dict:
+    """Phase 13a: qwen3-1.7b at full width (28 layers, weights from a
+    seeded generator on the card) through ``make_train_step(remat=True)``
+    on ``DataPipeline`` batches: a warm step (lr 0), then timed steps, each
+    ending in a synchronize.  Every leaf must change in the first step
+    with lr > 0, every loss and grad norm be finite and positive, the
+    peak memory hold at least the parameters, gradients and moments, and
+    the flash kernel never be launched (training takes the dense route)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import to_device
+    t = TRAIN_FULL
+    cfg = get_arch("qwen3-1.7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                            device=dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, remat=True, lr_peak=t["lr_peak"],
+                           lr_warmup=t["lr_warmup"], device=dev)
+    pipe = DataPipeline(vocab=cfg.vocab, seq_len=t["seq"],
+                        global_batch=t["batch"], seed=0)
+    batches = [to_device(pipe.batch(i), dev)
+               for i in range(1 + t["timed_steps"])]
+    n_params = sum(p.numel() for p in params.parameters())
+    state_bytes = sum(p.numel() * (2 * p.element_size() + 8)
+                      for p in params.parameters())
+    flash0 = fops.mha.launches
+    rows = []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            before = {n: p.detach().to("cpu", copy=True)
+                      for n, p in params.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows.append({"step": i, "ms": wall * 1e3,
+                     "tok_per_s": t["batch"] * t["seq"] / wall,
+                     **{k: float(v) for k, v in m.items()}})
+        if i == 1:
+            still = [n for n, p in params.named_parameters()
+                     if torch.equal(p.detach().cpu(), before[n])]
+            del before
+            if still:
+                raise AssertionError(f"13a: {len(still)} leaves did not "
+                                     f"change in step 1 (lr "
+                                     f"{rows[-1]['lr']}): {still[:4]}")
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and r["loss"] > 0
+                and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
+            raise AssertionError(f"13a step {r['step']}: loss {r['loss']}, "
+                                 f"grad norm {r['grad_norm']}")
+    if rows[0]["lr"] != 0.0 or not all(r["lr"] > 0 for r in rows[1:]):
+        raise AssertionError(f"13a: lr {[r['lr'] for r in rows]}")
+    if peak < state_bytes:
+        raise AssertionError(f"13a: peak memory {gb(peak / 1e9)} below "
+                             f"the {gb(state_bytes / 1e9)} of parameters, "
+                             f"gradients and moments")
+    if fops.mha.launches != flash0:
+        raise AssertionError("13a: the train step launched the flash kernel")
+    bound = train_step_bound(cfg, params, t["batch"], t["seq"])
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return {"rows": rows, "peak_bytes": peak, "state_bytes": state_bytes,
+            "n_params": n_params, "bound": bound}
+
+
+def check_train_golden(golden: dict, dev) -> dict:
+    """Phase 13g: qwen3-1.7b at full width with the golden's depth on
+    ``convert.lm_numpy_params`` -- step 0's per-leaf gradient norms and
+    the loss, grad norm and lr of three ``make_train_step`` steps held to
+    the JAX package's (``train_bars``)."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import to_device
+    g = golden
+    bars = train_bars(g)
+    cfg = dataclasses.replace(get_arch(g["arch"]), n_layers=g["n_layers"])
+    params = convert.lm_params_from_numpy(
+        convert.lm_numpy_params(cfg, seed=g["seed"]), cfg, dev)
+    pipe = DataPipeline(vocab=cfg.vocab, seq_len=g["seq"],
+                        global_batch=g["batch"], seed=g["data_seed"])
+    worst = {"loss": 0.0, "grad": 0.0, "lr": 0.0}
+
+    def hold(got, want, what, kind):
+        rel = abs(got - want) / abs(want) if want else abs(got)
+        worst[kind] = max(worst[kind], rel)
+        bar = 1e-6 if kind == "lr" else bars[kind]
+        if not rel <= bar:
+            raise AssertionError(f"13g {what}: {got!r} against the golden's "
+                                 f"{want!r} (rel {rel:.4g} > {bar:.4g})")
+
+    leaves = lm.named_leaves(params)
+    loss = lm.loss_fn(params, cfg, to_device(pipe.batch(0), dev), remat=True)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    norms = {}
+    for (name, _), gr in zip(leaves, grads):
+        norms.setdefault(lm.jax_path(name)[0], []).append(
+            float(gr.double().norm()))
+    del grads, leaves, loss
+    if sorted(norms) != sorted(g["grad_norms"]):
+        raise AssertionError(f"13g: leaves {sorted(norms)}")
+    for path, want in g["grad_norms"].items():
+        for i, (a, b) in enumerate(zip(norms[path], want, strict=True)):
+            hold(a, b, f"step 0 gradient norm of {path}[{i}]", "grad")
+    step = make_train_step(cfg, remat=True, lr_peak=g["lr_peak"],
+                           lr_warmup=g["lr_warmup"], lr_total=g["lr_total"],
+                           device=dev)
+    opt = init_opt_state(params)
+    got = []
+    for i, want in enumerate(g["steps_out"]):
+        params, opt, m = step(params, opt, pipe.batch(i))
+        got.append({k: float(v) for k, v in m.items()})
+        hold(got[-1]["loss"], want["loss"], f"step {i} loss", "loss")
+        hold(got[-1]["grad_norm"], want["grad_norm"], f"step {i} grad norm",
+             "grad")
+        hold(got[-1]["lr"], want["lr"], f"step {i} lr", "lr")
+    return {"steps": got, "worst": worst, "bars": bars}
+
+
+def run_train_resume(dev, root: str) -> dict:
+    """Phase 13r: the ``Trainer`` at ``tests/test_integration.py``'s TINY
+    (the reduced qwen3-1.7b with 2 layers) on the card: 15 straight steps
+    against 10 steps, a checkpoint and a resume to 15 (the reference's bar,
+    rel 1e-4); then a checkpoint the port wrote of a state on the card,
+    restored onto the card, equal bit for bit to what was saved."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataPipeline
+    from repro_torch.ckpt.manager import tree_flatten
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tiny = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), n_layers=2)
+    pipe = DataPipeline(vocab=tiny.vocab, seq_len=32, global_batch=4)
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name, steps, every=100):
+        return Trainer(tiny, TrainerConfig(
+            steps=steps, ckpt_every=every, log_every=100,
+            ckpt_dir=os.path.join(root, name)), pipe, device=dev)
+
+    t0 = time.perf_counter()
+    straight = trainer("straight", 15).run()
+    trainer("resumed", 10, every=10).run()
+    resumed = trainer("resumed", 15).run()
+    wall = time.perf_counter() - t0
+    a, b = straight["final_loss"], resumed["final_loss"]
+    if resumed["steps_run"] != 5 or not abs(a - b) <= 1e-4 * abs(a):
+        raise AssertionError(f"13r: resumed {resumed['steps_run']} steps to "
+                             f"loss {b!r}, straight {a!r} (rel 1e-4)")
+    tr = trainer("resumed", 15)
+    params, opt, start = tr.init_or_resume()
+    saved = tr._state(params, opt)
+    mgr = CheckpointManager(os.path.join(root, "bitwise"))
+    mgr.save(start, saved)
+    back = mgr.restore(saved, device=dev)
+    pairs = [(x, torch.as_tensor(y))
+             for x, y in zip(tree_flatten(back), tree_flatten(saved))]
+    same = all(x.device.type == torch.device(dev).type and x.dtype == y.dtype
+               and torch.equal(x.cpu(), y) for x, y in pairs)
+    again = convert.lm_params_from_numpy(back["params"], tiny, dev)
+    same = same and all(torch.equal(x, y) for x, y in zip(
+        again.parameters(), params.parameters()))
+    if not same:
+        raise AssertionError("13r: the restored checkpoint differs from the "
+                             "saved state")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"straight": a, "resumed": b, "rel": abs(a - b) / abs(a),
+            "bitwise": a == b, "wall_s": wall, "leaves": len(pairs),
+            "start": start,
+            "losses": [h["loss"] for h in straight["history"]]}
+
+
+def run_phase13(dev) -> dict:
+    """Phase 13, training: 13a full width, 13g the golden, 13r resume."""
+    t0 = time.time()
+    r = {"full": run_train_full(dev)}
+    full = r["full"]
+    bd = full["bound"]
+    for row in full["rows"]:
+        log(f"[train] 13a qwen3-1.7b full width, B={TRAIN_FULL['batch']} "
+            f"S={TRAIN_FULL['seq']}, step {row['step']}"
+            f"{' (warm)' if row['step'] == 0 else ''}: {row['ms']:.1f} ms, "
+            f"{row['tok_per_s']:,.0f} tok/s, loss {row['loss']!r}, grad "
+            f"norm {row['grad_norm']!r}, lr {row['lr']!r}")
+    timed = [row["ms"] for row in full["rows"][1:]]
+    log(f"[train] 13a: {full['n_params']:,} parameters; timed steps "
+        f"{', '.join(f'{ms:.1f}' for ms in timed)} ms against a bound of "
+        f"{bd['bound_s'] * 1e3:.1f} ms ({bd['bf16_ops']:.4g} bf16 FLOP "
+        f"{bd['bf16_s'] * 1e3:.1f} ms + {bd['f32_ops']:.4g} f32 FLOP "
+        f"{bd['f32_s'] * 1e3:.1f} ms + {bd['adam_bytes'] / 1e9:.2f} GB of "
+        f"AdamW {bd['adamw_s'] * 1e3:.1f} ms); peak memory "
+        f"{gb(full['peak_bytes'] / 1e9)} (parameters, gradients and "
+        f"moments {gb(full['state_bytes'] / 1e9)}); every leaf changed in "
+        f"step 1; no flash launch; {nvidia_smi()}")
+    t1 = time.time()
+    golden = json.load(open(TRAIN_GOLDEN))
+    r["golden"] = g = check_train_golden(golden, dev)
+    log(f"[train] 13g qwen3-1.7b full width, {golden['n_layers']} layers, "
+        f"B={golden['batch']} S={golden['seq']}: step 0's gradient norms "
+        f"and {len(g['steps'])} steps' loss, grad norm and lr within the "
+        f"golden's bars (worst loss {g['worst']['loss']:.3g} of "
+        f"{g['bars']['loss']:.3g}, grad {g['worst']['grad']:.3g} of "
+        f"{g['bars']['grad']:.3g}, lr {g['worst']['lr']:.3g} of 1e-06); "
+        f"losses {[s['loss'] for s in g['steps']]}; {time.time() - t1:.1f} s")
+    t1 = time.time()
+    r["resume"] = rr = run_train_resume(
+        dev, os.path.join(ROOT, "build", "chip_smoke_train"))
+    log(f"[train] 13r Trainer at the reduced qwen3-1.7b (2 layers) on the "
+        f"card: resumed at step 10 to {rr['resumed']!r}, straight "
+        f"{rr['straight']!r} (rel {rr['rel']:.3g}, bitwise "
+        f"{rr['bitwise']}); three trainer runs {rr['wall_s']:.1f} s; the "
+        f"step-{rr['start']} checkpoint's {rr['leaves']} leaves restored "
+        f"onto the card equal to the saved state; {time.time() - t1:.1f} s")
+    r["wall_s"] = time.time() - t0
+    log(f"[train] phase 13: {r['wall_s']:.1f} s")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the serve replay at full width
 # ---------------------------------------------------------------------------
 def replay_record(res, stats) -> dict:
@@ -2261,7 +2552,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN,
-                                           SCHED, SERVE_REPLAY)):
+                                           SCHED, SERVE_REPLAY,
+                                           TRAIN_GOLDEN)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -3006,6 +3298,10 @@ def main() -> int:
     # against the inline run, then the chaos suite's plans on the card
     run_phase12(spec6c, system, dev, cache, host_6c=runs6c["host"],
                 walls_6c=walls6c)
+
+    # 13. training: qwen3-1.7b train steps at full width, the training
+    # golden, the Trainer's resume on the card
+    run_phase13(dev)
 
     # 3b. the kernels at the shapes the paths handed them
     kernels = []

@@ -107,7 +107,7 @@ def lm_numpy_params(cfg: ModelConfig, seed: int = 0) -> Dict:
             f"the {cfg.family!r} family is not ported yet: ROADMAP.md "
             f"Queue 1 item 13")
     rng = np.random.default_rng(seed)
-    tree: Dict = {}
+    flat = {}
     for path, (shape, scale) in _dense_layout(cfg).items():
         if scale is None:
             a = np.ones(shape, np.float32)
@@ -117,12 +117,8 @@ def lm_numpy_params(cfg: ModelConfig, seed: int = 0) -> Dict:
             a = rng.standard_normal(shape, dtype=np.float32)
             a *= np.float32(scale)
             bf16_round(a)
-        node = tree
-        *heads, leaf = path.split("/")
-        for h in heads:
-            node = node.setdefault(h, {})
-        node[leaf] = a
-    return tree
+        flat[path] = a
+    return _nest(flat)
 
 
 def lm_params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda"):
@@ -134,15 +130,109 @@ def lm_params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda"):
     dev = _device.resolve(device)
     lm._dense_only(cfg)
     model = lm.LM(None, cfg, dev)
+    with torch.no_grad():
+        for name, a in _unstack(cfg, tree):
+            model.get_parameter(name).copy_(a)
+    return model
+
+
+def _names(cfg: ModelConfig, path: str) -> List[str]:
+    """The module's parameter names that hold ``path`` of the JAX layout:
+    one a block for a stacked ``layers`` leaf."""
+    head, rest = path.split("/", 1)
+    if head != "layers":
+        return [path.replace("/", ".")]
+    return [f"layers.{i}.{rest.replace('/', '.')}"
+            for i in range(cfg.n_layers)]
+
+
+def _unstack(cfg: ModelConfig, tree: Dict):
+    """(parameter name, f32 CPU tensor) for each leaf of a tree in the JAX
+    layout (numpy arrays or tensors), the stacked leaves split over the
+    blocks."""
     for path in _dense_layout(cfg):
         a = tree
         for key in path.split("/"):
             a = a[key]
-        a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        head, rest = path.split("/", 1)
-        if head != "layers":
-            model.get_parameter(path.replace("/", ".")).copy_(a)
-            continue
-        for i, block in enumerate(model.layers):
-            block.get_parameter(rest.replace("/", ".")).copy_(a[i])
-    return model
+        if isinstance(a, torch.Tensor):
+            a = a.detach().to("cpu", torch.float32)
+        else:
+            a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        names = _names(cfg, path)
+        for i, name in enumerate(names):
+            yield name, (a[i] if path.startswith("layers/") else a)
+
+
+def _stack(cfg: ModelConfig, get) -> Dict[str, torch.Tensor]:
+    """path -> a new CPU tensor of the JAX layout, from ``get(name)`` of
+    each parameter name, the blocks stacked on axis 0."""
+    flat = {}
+    for path in _dense_layout(cfg):
+        ts = [get(name).detach().cpu() for name in _names(cfg, path)]
+        flat[path] = (torch.stack(ts) if path.startswith("layers/")
+                      else ts[0].clone())
+    return flat
+
+
+def _nest(flat: Dict[str, object]) -> Dict:
+    tree: Dict = {}
+    for path, a in flat.items():
+        node = tree
+        *heads, leaf = path.split("/")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = a
+    return tree
+
+
+def lm_tree_from_params(params, cfg: ModelConfig) -> Dict:
+    """The port's module as a tree of the JAX package's layout: nested
+    dicts of new CPU tensors in the parameters' types, the blocks stacked
+    on axis 0."""
+    from .models import lm
+    lm._dense_only(cfg)
+    return _nest(_stack(cfg, params.get_parameter))
+
+
+def lm_numpy_from_params(params, cfg: ModelConfig) -> Dict:
+    """The inverse of ``lm_params_from_numpy``: the module's values as a
+    numpy tree of the JAX package's layout (f32 arrays, every value exact in
+    its parameter's type, as ``lm_numpy_params`` makes them)."""
+    from .models import lm
+    lm._dense_only(cfg)
+    return _nest({k: t.float().numpy()
+                  for k, t in _stack(cfg, params.get_parameter).items()})
+
+
+def opt_state_to_numpy(state, cfg: ModelConfig):
+    """The port's ``optim.OptState`` (moments keyed by the module's
+    parameter names) as the JAX package's: ``m`` and ``v`` as f32 numpy
+    trees of its layout (blocks stacked), ``step`` a 0-d int32 array."""
+    from .models import lm
+    from .optim import OptState
+    lm._dense_only(cfg)
+
+    def tree(moments):
+        return _nest({k: t.numpy()
+                      for k, t in _stack(cfg, moments.__getitem__).items()})
+
+    return OptState(m=tree(state.m), v=tree(state.v),
+                    step=np.asarray(int(state.step), np.int32))
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, device="cuda"):
+    """The inverse of ``opt_state_to_numpy``: a JAX ``OptState``'s fields
+    (numpy arrays or tensors in the JAX layout) as the port's ``OptState``
+    on ``device``, the stacked moments split over the blocks."""
+    from .models import lm
+    from .optim import OptState
+    dev = _device.resolve(device)
+    lm._dense_only(cfg)
+    m, v, step = state
+
+    def moments(tree):
+        return {name: a.to(dev, copy=True) for name, a in _unstack(cfg, tree)}
+
+    step = torch.as_tensor(np.asarray(step), dtype=torch.int32,
+                           device=dev).reshape(())
+    return OptState(m=moments(m), v=moments(v), step=step)

@@ -132,8 +132,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``check`` says which shapes).
 
     A CPU tensor takes the plain version; a CUDA tensor launches a CUDA
-    kernel (``launch``)."""
+    kernel (``launch``).  Under autograd it raises on every device: the
+    kernel has no backward, so its output would carry no gradient to the
+    attention projections (the training path takes the dense and chunked
+    routes)."""
     check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash attention has no backward kernel: call it without "
+            "autograd (torch.no_grad or torch.inference_mode) and train "
+            "with use_flash=False, the dense and chunked routes, as the "
+            "reference's trainer does (ROADMAP.md Queue 1 item 13a)")
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

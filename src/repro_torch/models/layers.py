@@ -5,8 +5,9 @@ Parameters live in small ``nn.Module``s whose attribute names are the JAX
 package's dictionary keys (``RMSNorm.scale``, ``SwiGLU.w_gate``, ...), and
 weights keep its orientation: ``x @ W`` with ``W [d_in, d_out]``, so a
 parameter tree carries across without transposes.  The functions take the
-module as the JAX functions take the dictionary.  Parameters are created
-with ``requires_grad=False``: the port serves and does not train yet.
+module as the JAX functions take the dictionary.  Parameters require
+grad, so the trainer differentiates them with autograd; the serving steps
+run under ``torch.inference_mode()`` and record no graph.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torch import nn
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.bfloat16,

@@ -4,17 +4,20 @@
 ``init_params`` builds an ``nn.Module`` whose attribute tree is the JAX
 parameter tree, with the stacked layer axis split into an
 ``nn.ModuleList`` of blocks; ``hidden`` and ``forward`` run the layers in
-a Python loop where the JAX package scans.  The ``moe``, ``ssm``,
-``hybrid``, ``encdec`` and ``vlm`` families are not ported yet (ROADMAP.md
-Queue 1 item 13) and raise ``NotImplementedError``; the training loss
-waits for the training slice.
+a Python loop where the JAX package scans, each layer under
+``torch.utils.checkpoint`` where the JAX package wraps the scan body in
+``jax.checkpoint`` (``remat=True``).  ``loss_fn`` is the JAX package's
+chunked cross-entropy.  The ``moe``, ``ssm``, ``hybrid``, ``encdec`` and
+``vlm`` families are not ported yet (ROADMAP.md Queue 1 item 13) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..configs.base import ModelConfig
@@ -90,24 +93,90 @@ def _dense_block(cfg: ModelConfig, lp, x, use_flash):
     return x + _mlp(cfg, lp, L.rmsnorm(lp.ln2, x))
 
 
+def _remat(remat: bool) -> bool:
+    """Recompute in the backward only where a graph is being recorded."""
+    return remat and torch.is_grad_enabled()
+
+
 def hidden(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-           use_flash: bool = False) -> torch.Tensor:
-    """Final-norm hidden states [B, S, d] over the token positions."""
+           use_flash: bool = False, remat: bool = False) -> torch.Tensor:
+    """Final-norm hidden states [B, S, d] over the token positions.
+    ``remat``: keep only each layer's input for the backward and recompute
+    the layer there (``jax.checkpoint`` of the JAX scan body)."""
     _dense_only(cfg)
     x = L.embed(params.embed, batch["tokens"])
     for lp in params.layers:
-        x = _dense_block(cfg, lp, x, use_flash)
+        if _remat(remat):
+            x = checkpoint(_dense_block, cfg, lp, x, use_flash,
+                           use_reentrant=False)
+        else:
+            x = _dense_block(cfg, lp, x, use_flash)
     return L.rmsnorm(params.ln_f, x)
 
 
 def forward(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            use_flash: bool = False, last_only: bool = False) -> torch.Tensor:
+            use_flash: bool = False, remat: bool = False,
+            last_only: bool = False) -> torch.Tensor:
     """f32 logits [B, S, vocab].  last_only=True (prefill): unembed only
     the final position -- never materialize [B, 32K, vocab]."""
-    x = hidden(params, cfg, batch, use_flash=use_flash)
+    x = hidden(params, cfg, batch, use_flash=use_flash, remat=remat)
     if last_only:
         x = x[:, -1:, :]
     return L.unembed(params.embed, x)
+
+
+def _ce_chunk(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
+    """One sequence chunk of the cross-entropy: (sum of -log p(label) over
+    the unmasked positions, their count), f32.  ``table`` is the f32 tied
+    table (``L.unembed``'s product)."""
+    logits = x.float() @ table.T
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1,
+                       labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - lab) * mask).sum(), mask.sum()
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            ce_chunk: int = 1024, remat: bool = False, **kw) -> torch.Tensor:
+    """Chunked cross-entropy (the JAX package's ``loss_fn``): sequence
+    chunks of ``ce_chunk`` positions (all ``S`` when it does not divide)
+    are unembedded in f32 one at a time, labels < 0 are masked, and the
+    sum is divided by max(count, 1).  The table is cast to f32 once a
+    call; with ``remat`` each chunk's logits are recomputed in the
+    backward, so the [B, S, vocab] logits are never all alive at once."""
+    x = hidden(params, cfg, batch, remat=remat, **kw)
+    labels = batch["labels"]
+    s = x.shape[1]
+    chunk = min(ce_chunk, s)
+    if s % chunk != 0:
+        chunk = s
+    table = params.embed.table.float()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        args = (x[:, c0:c0 + chunk], table, labels[:, c0:c0 + chunk])
+        t, c = (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                if _remat(remat) else _ce_chunk(*args))
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def jax_path(name: str) -> Tuple[str, int]:
+    """A parameter's name in the port's module as (path in the JAX tree,
+    layer index or -1): ``layers.3.attn.wq`` -> (``layers/attn/wq``, 3)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    return "/".join(parts), -1
+
+
+def named_leaves(params: LM) -> List[Tuple[str, nn.Parameter]]:
+    """The parameters in the JAX tree's leaf order (sorted keys: ``embed``,
+    ``layers``, ``ln_f``; a stacked leaf's layers in turn)."""
+    return sorted(params.named_parameters(),
+                  key=lambda kv: jax_path(kv[0]))
 
 
 # ---------------------------------------------------------------------------

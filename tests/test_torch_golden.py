@@ -17,6 +17,7 @@ GOLDEN_DIR = os.path.join(ROOT, "src", "repro_torch", "golden")
 GOLDEN = os.path.join(GOLDEN_DIR, "config3_moti2_full.json")
 SYSTEM = os.path.join(GOLDEN_DIR, "config3_moti2_full_system.json")
 LM_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_serve.json")
+TRAIN_GOLDEN = os.path.join(GOLDEN_DIR, "qwen3_1_7b_w2_train.json")
 SCHED = os.path.join(GOLDEN_DIR, "config1_sched.json")
 
 
@@ -111,6 +112,31 @@ def test_lm_golden_file_is_the_reference(lm_golden):
     assert (cs.REF_GAP, cs.LOGIT_RTOL) == (REF_GAP, LOGIT_RTOL)
     assert committed["serve"]["stats"]["completed"] == len(
         committed["serve"]["requests"])
+
+
+def test_train_golden_file_is_the_reference(tmp_path):
+    """The training golden is what the JAX package computes: three steps
+    of its train step, step 0's gradient norms and its own dense-versus-
+    chunked gap, which stays inside the gap the training tolerance is built
+    on (tests/test_torch_train.py); chip_smoke.py takes its bars from it."""
+    from test_torch_sim import TRAIN_GOLDEN as SPEC
+    from test_torch_train import GRAD_GAP, LOSS_GAP
+    fresh = _fresh(tmp_path, "train_golden")
+    with open(TRAIN_GOLDEN) as f:
+        committed = json.load(f)
+    assert committed == fresh
+    assert {k: committed[k] for k in SPEC} == SPEC
+    assert committed["ref_gap"]["loss"] <= LOSS_GAP
+    assert committed["ref_gap"]["grad"] <= GRAD_GAP
+    steps = committed["steps_out"]
+    assert len(steps) == SPEC["steps"] and steps[0]["lr"] == 0.0
+    assert all(s["loss"] > 0 and s["grad_norm"] > 0 for s in steps)
+    assert len(committed["grad_norms"]["layers/attn/wq"]) == \
+        SPEC["n_layers"]
+    cs = _chip_smoke()
+    assert cs.train_bars(committed) == {
+        "loss": max(2 * committed["ref_gap"]["loss"], 1e-3),
+        "grad": max(2 * committed["ref_gap"]["grad"], 2e-2)}
 
 
 @pytest.mark.usefixtures("torch_one_thread")

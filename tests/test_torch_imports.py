@@ -73,5 +73,7 @@ def test_every_port_module_is_checked():
                  "launch/serve.py", "core/dramsched.py", "core/fused.py",
                  "kernels/llc_rounds/ops.py",
                  "kernels/llc_rounds/kernel.py", "serve/trace.py",
-                 "serve/replay.py", "serve/api.py"):
+                 "serve/replay.py", "serve/api.py", "optim/adamw.py",
+                 "optim/__init__.py", "data/pipeline.py", "ckpt/manager.py",
+                 "train/trainer.py", "launch/train.py"):
         assert must in names

@@ -68,6 +68,18 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 JSON.  Regenerate the committed file with
                 ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
                 lm_golden src/repro_torch/golden/qwen3_1_7b_w2_serve.json``.
+* ``train_golden`` -- the same 2-layer full-width model (``TRAIN_GOLDEN``):
+                three ``make_train_step(remat=True, lr_peak=3e-4,
+                lr_warmup=1, lr_total=10)`` steps on
+                ``DataPipeline(seed=0).batch(0..2)`` at B=1, S=256 (each
+                step's loss, grad norm and lr), step 0's per-leaf gradient
+                L2 norms (per layer for the stacked leaves), and the JAX
+                package's own dense-versus-chunked attention gap in the
+                loss and the gradients (``ref_gap``), as JSON: what
+                ``chip_smoke.py`` phase 13g holds the card to.  Regenerate
+                the committed file with ``PYTHONPATH=src JAX_PLATFORMS=cpu
+                python tests/test_torch_sim.py train_golden
+                src/repro_torch/golden/qwen3_1_7b_w2_train.json``.
 """
 import dataclasses
 import json
@@ -161,6 +173,9 @@ SCHED_CELL = dict(config="config1", mix="moti1", policies=("hydra",
 LM_ARCH = "qwen3-1.7b"
 LM_GOLDEN = dict(n_layers=2, seed=0, batch=2, seq=512, decode_steps=8,
                  decode_s_max=16, n_sampled=64)
+# the training golden: the serving golden's model, three train steps
+TRAIN_GOLDEN = dict(n_layers=2, seed=0, batch=1, seq=256, steps=3,
+                    lr_peak=3e-4, lr_warmup=1, lr_total=10, data_seed=0)
 SERVE_RUN = dict(slots=4, s_max=256, max_steps=4000, token_budget=4096,
                  deadline_tokens=128, profile_seed=0)
 SESSIONS = 64          # seeded session features the profile is fit on
@@ -742,6 +757,90 @@ def _lm_golden_child(out: str) -> None:
         f.write("\n")
 
 
+def leaf_norms(tree) -> dict:
+    """Each leaf's L2 norm (f64 over the f32 values), per layer for the
+    stacked ``layers`` leaves, keyed by path."""
+    out = {}
+    for path, a in _tree_leaves(tree):
+        a = np.asarray(a, np.float64)
+        out[path] = ([float(np.sqrt((x * x).sum())) for x in a]
+                     if path.startswith("layers/") else
+                     [float(np.sqrt((a * a).sum()))])
+    return out
+
+
+def _tree_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _tree_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def route_gap(loss_a, grads_a, loss_b, grads_b) -> dict:
+    """The gap between two (loss, grads) of one model: the loss's
+    relative difference and the largest max |dgrad| / max |grad| of a
+    leaf (the gradients as f32 numpy trees)."""
+    ga, gb = dict(_tree_leaves(grads_a)), dict(_tree_leaves(grads_b))
+    return {"loss": abs(float(loss_a) - float(loss_b)) / abs(float(loss_a)),
+            "grad": max(float(np.abs(ga[k] - gb[k]).max()
+                              / np.abs(ga[k]).max()) for k in ga)}
+
+
+def _train_golden_child(out: str) -> None:
+    import dataclasses as dc
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro.data import DataPipeline
+    from repro.models import attention, lm
+    from repro.optim import init_opt_state
+    from repro.train.step import make_train_step
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.configs import get_arch as port_arch
+    g = TRAIN_GOLDEN
+    cfg = dc.replace(get_arch(LM_ARCH), n_layers=g["n_layers"])
+    params = _jax_params(cfg, lm_numpy_params(
+        dc.replace(port_arch(LM_ARCH), n_layers=g["n_layers"]),
+        seed=g["seed"]))
+    pipe = DataPipeline(vocab=cfg.vocab, seq_len=g["seq"],
+                        global_batch=g["batch"], seed=g["data_seed"])
+    batches = [{k: jnp.asarray(v) for k, v in pipe.batch(i).items()}
+               for i in range(g["steps"])]
+
+    def f32(tree):
+        return jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)),
+                            tree)
+
+    def value_and_grad(chunked: bool):
+        prev = attention.CHUNKED_SEQ
+        attention.CHUNKED_SEQ = g["seq"] if chunked else prev
+        try:
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p: lm.loss_fn(p, cfg, batches[0], remat=True)))(params)
+        finally:
+            attention.CHUNKED_SEQ = prev
+        return float(loss), f32(grads)
+
+    loss, grads = value_and_grad(False)
+    gap = route_gap(loss, grads, *value_and_grad(True))
+    norms = leaf_norms(grads)
+    del grads
+    step = jax.jit(make_train_step(cfg, remat=True, lr_peak=g["lr_peak"],
+                                   lr_warmup=g["lr_warmup"],
+                                   lr_total=g["lr_total"]))
+    opt = init_opt_state(params)
+    steps = []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        steps.append({k: float(v) for k, v in m.items()})
+    doc = {"arch": LM_ARCH, **g, "steps_out": steps, "grad_norms": norms,
+           "ref_gap": gap}
+    with open(out, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def _child_main(mode: str, out: str) -> None:
     import jax
     import jax.experimental
@@ -798,6 +897,8 @@ def _child_main(mode: str, out: str) -> None:
         _serve_child(out)
     elif mode == "lm_golden":
         _lm_golden_child(out)
+    elif mode == "train_golden":
+        _train_golden_child(out)
     elif mode == "replay":
         _replay_child(out)
     elif mode == "serve_replay":
