@@ -87,7 +87,21 @@ port's two paths at full size, each with the kernels' launch counts set to
   qwen3_1_7b_w2_train.json``: step 0's per-leaf gradient norms and three
   steps' loss, grad norm and lr); 13r the ``Trainer`` at the reduced
   config resumed at step 10 equal to 15 straight steps within rel 1e-4,
-  and a checkpoint the port wrote restored onto the card bit for bit.
+  and a checkpoint the port wrote restored onto the card bit for bit;
+* phase 14, the moe and ssm families: 14a qwen2-moe-a2.7b at full width
+  (24 layers, seeded weights on the card) through
+  ``make_prefill_step(use_flash=True)`` at B=1, S=4096 (24 flash launches,
+  all on the Hopper kernel, each layer's output held to ``mha_plain`` on
+  the same q, k, v), then ``ServeEngine`` with the ``HydraKVScheduler`` on
+  the launcher's requests (stats equal to the golden's; tok/s, ms a decode
+  step beside its bound, peak memory); 14b rwkv6-1.6b at full width, its
+  prefill at B=1, S=2048 and the engine; 14g the 1-layer qwen2-moe and the
+  2-layer rwkv6 at full width on ``convert.lm_numpy_params`` held to the
+  JAX package's logits (``src/repro_torch/golden/
+  qwen2_moe_a2_7b_w1_serve.json``, ``rwkv6_1_6b_w2_serve.json``); 14c
+  ``optim.compress``: ``quantize`` bitwise its CPU result and
+  ``quantized_psum_tree`` over an NCCL world of one on qwen3-1.7b's
+  full-width leaf shapes within 0.5 x scale per element.
 
 Flash attention has two kernels (``ops.route``): bf16 goes to the Hopper
 kernel (``wgmma`` for both products, a TMA-fed K/V ring, a producer
@@ -1732,6 +1746,437 @@ def run_engine(cfg, params, golden_serve: dict, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the moe and ssm families on the card
+MOE_GOLDEN = os.path.join(GOLDEN_DIR, "qwen2_moe_a2_7b_w1_serve.json")
+SSM_GOLDEN = os.path.join(GOLDEN_DIR, "rwkv6_1_6b_w2_serve.json")
+# (B, S) of 14a's and 14b's prefill
+MOE_PREFILL = (1, 4096)
+SSM_PREFILL = (1, 2048)
+# 14c's tree: a gradient of this arch's full-width leaf shapes, f32
+COMPRESS_ARCH = "qwen3-1.7b"
+
+
+def family_bar(golden: dict) -> float:
+    """A family golden's bar: twice the JAX package's own gap between its
+    attention routes, and at least the dense family's model-level bar."""
+    return max(2 * golden["ref_gap"], LOGIT_RTOL)
+
+
+def hold_digest(lg, want: dict, sample_idx, bar: float, what,
+                values: bool = True) -> dict:
+    """Last-token logits ``lg`` [B, V] against a golden digest, as phase
+    8g holds them: the logsumexp and, with ``values`` (the prefill), the
+    sampled logits and the golden's top-8 logits within ``bar`` x the
+    golden's max |logit|.  The argmax must be the golden's, or (a near
+    tie, counted) a golden top-8 entry within 2 x bar x max |logit| of the
+    golden's top.  Returns the held gap and, apart, the largest gap of
+    the sampled and top-8 logits."""
+    import numpy as np
+    lg = np.asarray(lg, np.float64)
+    if not np.isfinite(lg).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    scale = max(want["max_abs"])
+    top = np.asarray(want["top8_idx"])
+    lse = lg.max(-1) + np.log(np.exp(lg - lg.max(-1, keepdims=True)).sum(-1))
+
+    def gap(got, ref):
+        return float(np.abs(got - np.asarray(ref, np.float64)).max()) / scale
+
+    vals = max(gap(lg[:, sample_idx], want["sampled"]),
+               gap(np.take_along_axis(lg, top, -1), want["top8_val"]))
+    err = max(gap(lse, want["lse"]), vals if values else 0.0)
+    if not err <= bar:
+        raise AssertionError(f"{what}: max |diff| {err:.4g} x max|logit| > "
+                             f"{bar:.4g}")
+    ties = 0
+    for row, a in enumerate(lg.argmax(-1).tolist()):
+        if a == top[row, 0]:
+            continue
+        vals = dict(zip(top[row].tolist(), want["top8_val"][row]))
+        if a not in vals or vals[top[row, 0]] - vals[a] > 2 * bar * scale:
+            raise AssertionError(f"{what}: argmax {a} != golden "
+                                 f"{top[row, 0]} (row {row}), no near tie")
+        ties += 1
+    return {"err": err, "values": vals, "ties": ties}
+
+
+class RouterLog:
+    """Wraps ``models.moe.dispatch`` and keeps each call's router choices
+    (the top-k expert ids of every token, [B, S, k])."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.fn, self.sel = moe_mod, moe_mod.dispatch, []
+        moe_mod.dispatch = self
+
+    def __call__(self, p, x, *, top_k, **kw):
+        logits = x.float() @ p.router.float()
+        self.sel.append(self.moe._top_k(logits, top_k)[1].cpu().numpy())
+        return self.fn(p, x, top_k=top_k, **kw)
+
+    def restore(self):
+        self.moe.dispatch = self.fn
+
+
+def flipped_rows(sel, rows: list, k: int, router_gap: float, what) -> set:
+    """The batch rows whose last token took other experts than the
+    golden's (``rows``: its recorded top router logits).  A row may flip
+    only where each expert it took instead lies within 2 x ``router_gap``
+    (the JAX package's own largest router-logit movement between its two
+    attention routes) of the golden's k-th logit."""
+    flipped = set()
+    for b, row in enumerate(rows):
+        got, want = set(sel[b, -1].tolist()), set(row["idx"][:k])
+        if got == want:
+            continue
+        val = dict(zip(row["idx"], row["val"]))
+        kth = row["val"][k - 1]
+        for e in got - want:
+            if e not in val or kth - val[e] > 2 * router_gap:
+                raise AssertionError(
+                    f"{what}: row {b} took expert {e} for "
+                    f"{sorted(want - got)}, not within 2 x router_gap "
+                    f"{router_gap:.4g} of the golden's k-th router logit")
+        flipped.add(b)
+    return flipped
+
+
+def check_family_golden(golden: dict, dev) -> dict:
+    """Phase 14g: a moe or ssm arch at full width with the golden's depth
+    on ``convert.lm_numpy_params`` -- both prefill routes' last-token
+    logits and the decode steps held to the JAX package's (its flash
+    route) within ``family_bar``, the components and argmax as phase 8g
+    holds them (``hold_digest``).  At one moe layer a token's logits
+    follow from its own router choice: a row whose choice differs from the
+    golden's (``flipped_rows``, a near tie of the router) is counted and
+    not held."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm, moe as moe_mod
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(get_arch(golden["arch"]),
+                              n_layers=golden["n_layers"])
+    t0 = time.perf_counter()
+    params = convert.lm_params_from_numpy(
+        convert.lm_numpy_params(cfg, seed=golden["seed"]), cfg, dev)
+    t_weights = time.perf_counter() - t0
+    rng = np.random.default_rng(golden["seed"])
+    tokens = rng.integers(0, cfg.vocab, (golden["batch"], golden["seq"]))
+    if rng.integers(0, cfg.vocab, golden["n_sampled"]).tolist() != \
+            golden["sample_idx"]:
+        raise AssertionError("14g: the seeded inputs differ from the "
+                             "golden's")
+    tok = torch.as_tensor(tokens, device=dev)
+    idx = np.asarray(golden["sample_idx"])
+    bar = family_bar(golden)
+    router = RouterLog(moe_mod) if "router" in golden else None
+    held, flips = [], 0
+
+    def hold(lg, want, what, n_call, values=True):
+        nonlocal flips
+        lg = lg[:, 0].double().cpu().numpy()
+        if router is not None:
+            skip = flipped_rows(router.sel[-1], golden["router"][n_call],
+                                cfg.top_k, golden["router_gap"], what)
+            flips += len(skip)
+            keep = [b for b in range(lg.shape[0]) if b not in skip]
+            want = {k: [v[b] for b in keep] for k, v in want.items()}
+            lg = lg[keep]
+            if not keep:
+                return
+        held.append(hold_digest(lg, want, idx, bar, what, values))
+
+    try:
+        for route, flash in (("flash", True), ("plain", False)):
+            lg = make_prefill_step(cfg, use_flash=flash)(params,
+                                                         {"tokens": tok})
+            hold(lg, golden["prefill"]["flash"],
+                 f"14g {golden['arch']} {route} prefill", 0)
+        n_prefill = len(held)
+        state = lm.init_decode_state(params, cfg, golden["batch"],
+                                     golden["decode_s_max"])
+        step = make_serve_step(cfg)
+        for t, want in enumerate(golden["decode"]):
+            lg, state = step(params, state, tok[:, t:t + 1])
+            hold(lg, want, f"14g {golden['arch']} decode step {t}", t + 1,
+                 values=False)
+    finally:
+        if router is not None:
+            router.restore()
+    return {"weights_s": t_weights, "bar": bar,
+            "worst_rel": max(h["err"] for h in held),
+            "decode_values": max(h["values"] for h in held[n_prefill:]),
+            "ties": sum(h["ties"] for h in held), "flips": flips}
+
+
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def serve_full(cfg, params, golden_serve: dict, dev) -> dict:
+    """``run_engine`` on a full-width model, with its peak memory and the
+    decode step's bound: every parameter read once at 3.35 TB/s."""
+    import torch
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    eng = run_engine(cfg, params, golden_serve, dev)
+    eng["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    eng["bound_ms"] = param_bytes(params) / HBM_BYTES_PER_S * 1e3
+    return eng
+
+
+def route_gap(a, b) -> float:
+    import numpy as np
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def run_moe_full(dev, fops, kops) -> dict:
+    """14a: qwen2-moe-a2.7b at full width (24 layers, seeded weights on the
+    card).  Prefill through ``make_prefill_step(use_flash=True)`` at
+    ``MOE_PREFILL``: 24 flash launches, all on the Hopper kernel, each
+    layer's kernel output held to ``mha_plain`` on the same q, k, v
+    (``prefill``); the routes' logits are finite and their gaps printed
+    (the router's top-k turns last-bit differences into other experts, so
+    the golden, 14g, holds the numbers).  Then ``ServeEngine`` with the
+    ``HydraKVScheduler`` on the launcher's requests: stats equal to the
+    golden's, one ``kmeans_fit`` and one ``kmeans_assign`` launch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    golden = json.load(open(MOE_GOLDEN))
+    cfg = get_arch(golden["arch"])
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                            device=dev)
+    sync(dev)
+    out = {"init_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "param_gb": param_bytes(params) / 1e9,
+           "heads": (cfg.n_heads, cfg.n_kv, cfg.d_head)}
+    b, s = MOE_PREFILL
+    # warm: the first calls of this model's GEMM shapes, off the counts
+    from repro_torch.train import make_prefill_step
+    make_prefill_step(cfg, use_flash=True)(params, {"tokens": torch.zeros(
+        (b, 256), dtype=torch.int64, device=dev)})
+    flash = fops.mha
+    flash.launches = 0
+    flash.kernel_launches = dict.fromkeys(fops.KERNELS, 0)
+    r = prefill(cfg, params, b, s, dev)
+    launches = tuple(r[k]["flash_launches"]
+                     for k in ("flash", "flash_plain", "plain"))
+    by_kernel = dict(flash.kernel_launches)
+    if launches != (cfg.n_layers, 0, 0) or r["held"]["layers"] != \
+            cfg.n_layers or by_kernel != {"wgmma": cfg.n_layers, "simt": 0}:
+        raise AssertionError(f"14a prefill: flash launches {launches}, by "
+                             f"kernel {by_kernel}, {r['held']['layers']} "
+                             f"layers held; want {cfg.n_layers}, all on the "
+                             f"Hopper kernel")
+    hold_flash(r["held"], f"14a prefill, layer {r['held']['worst_layer']}")
+    for k in ("flash", "flash_plain", "plain"):
+        if not np.isfinite(r[k]["logits"]).all():
+            raise AssertionError(f"14a {k} route: non-finite logits")
+    out.update(prefill=r, launches=by_kernel,
+               gap_kernel=route_gap(r["flash"]["logits"],
+                                    r["flash_plain"]["logits"]),
+               gap_dense=route_gap(r["flash"]["logits"],
+                                   r["plain"]["logits"]))
+    dense, fit = kops.assign, kops.fit_masked
+    dense.launches = fit.launches = flash.launches = 0
+    kops.fit_segmented.launches = kops.assign_segmented.launches = 0
+    out["serve"] = serve_full(cfg, params, golden["serve"], dev)
+    counts = (fit.launches, dense.launches, kops.fit_segmented.launches,
+              kops.assign_segmented.launches, flash.launches)
+    if counts != (1, 1, 0, 0, 0):
+        raise AssertionError(f"14a serving launched kmeans_fit, "
+                             f"kmeans_assign, kmeans_fit_segmented, "
+                             f"kmeans_assign_segmented, flash {counts}; "
+                             f"want (1, 1, 0, 0, 0)")
+    del params
+    return out
+
+
+def run_ssm_full(dev, kops) -> dict:
+    """14b: rwkv6-1.6b at full width (24 layers, seeded weights on the
+    card): prefill at ``SSM_PREFILL`` (the time loop: a few torch ops a
+    step and layer), finite logits, then ``ServeEngine`` with the
+    ``HydraKVScheduler``, stats equal to the golden's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train import make_prefill_step
+    golden = json.load(open(SSM_GOLDEN))
+    cfg = get_arch(golden["arch"])
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                            device=dev)
+    sync(dev)
+    out = {"init_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "param_gb": param_bytes(params) / 1e9}
+    b, s = SSM_PREFILL
+    gen = torch.Generator(dev).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tok[:, :64]})            # warm: cuBLAS, allocator
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tok})
+    sync(dev)
+    wall = time.perf_counter() - t0
+    if not np.isfinite(logits.float().cpu().numpy()).all():
+        raise AssertionError("14b prefill: non-finite logits")
+    out["prefill"] = {"wall_s": wall, "tok_per_s": b * s / wall,
+                      "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                  if cuda else None)}
+    kops.assign.launches = kops.fit_masked.launches = 0
+    out["serve"] = serve_full(cfg, params, golden["serve"], dev)
+    if (kops.fit_masked.launches, kops.assign.launches) != (1, 1):
+        raise AssertionError(f"14b serving launched kmeans_fit "
+                             f"{kops.fit_masked.launches}, kmeans_assign "
+                             f"{kops.assign.launches}; want 1 and 1")
+    del params
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_compress(dev) -> dict:
+    """14c: ``quantize`` on the card bitwise its CPU result, then
+    ``quantized_psum_tree`` over a world of one (NCCL on the card, gloo on
+    the CPU) on an f32 tree of ``COMPRESS_ARCH``'s full-width leaf shapes,
+    timed after one warm call: every element within 0.5 x scale of its
+    input, plus the f32 roundings of the quotient and the product (2 x 127
+    x 2^-24 x scale)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.optim import compress
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randn((4096, 2048), generator=gen, device=dev) * 1e-3
+    q, scale = compress.quantize(x)
+    q_cpu, scale_cpu = compress.quantize(x.cpu())
+    if not (torch.equal(q.cpu(), q_cpu)
+            and torch.equal(scale.cpu(), scale_cpu)):
+        raise AssertionError("14c: quantize on the card != on the CPU")
+    cuda = torch.device(dev).type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        layout = convert._dense_layout(get_arch(COMPRESS_ARCH))
+        tree = convert._nest({
+            path: torch.randn(shape, generator=gen, device=dev) * 1e-3
+            for path, (shape, _) in layout.items()})
+        compress.quantized_psum(x)       # the group's first collectives
+        sync(dev)
+        t0 = time.perf_counter()
+        out = compress.quantized_psum_tree(tree)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    worst, n = 0.0, 0
+    for path in layout:
+        a, b = tree, out
+        for key in path.split("/"):
+            a, b = a[key], b[key]
+        scale = torch.clamp(a.abs().max(), min=1e-12) / 127.0
+        rel = float((b - a).abs().max() / scale)
+        if not rel <= 0.5 + 2 * 127 * 2 ** -24:
+            raise AssertionError(f"14c {path}: |psum - x| {rel:.6g} x scale")
+        worst, n = max(worst, rel), n + a.numel()
+    return {"wall_s": wall, "leaves": len(layout), "elements": n,
+            "worst_rel": worst}
+
+
+def run_phase14(dev, fops, kops) -> dict:
+    """Phase 14, the moe and ssm families: 14a qwen2-moe-a2.7b and 14b
+    rwkv6-1.6b at full width, 14g the two goldens, 14c compression."""
+    import torch
+    t0 = time.time()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    r = {"moe": run_moe_full(dev, fops, kops)}
+    m = r["moe"]
+    p, sv = m["prefill"], m["serve"]
+    b, s = MOE_PREFILL
+    log(f"[moe] 14a qwen2-moe-a2.7b full width: {m['n_params']:,} "
+        f"parameters ({m['param_gb']:.2f} GB) initialised on the card in "
+        f"{m['init_s']:.1f} s; prefill B={b} S={s}: " + "; ".join(
+            f"{name} {p[key]['wall_s']:.2f} s ({p[key]['tok_per_s']:,.0f} "
+            f"tok/s, peak {gb(p[key]['max_mem_gb'])})" for key, name in
+            (("flash", "flash route"),
+             ("flash_plain", "flash with mha_plain"),
+             ("plain", "dense route"))) + f"; flash launches {m['launches']}")
+    log(f"[moe] 14a: the kernel on each of the {p['held']['layers']} "
+        f"layers' q, k, v (H, Hkv, d = {m['heads']}): "
+        f"{flash_readings(p['held'])} (worst layer "
+        f"{p['held']['worst_layer']}); last-token logits finite, flash vs "
+        f"the mha_plain forward {m['gap_kernel']:.4g} x max|logit|, vs the "
+        f"dense route {m['gap_dense']:.4g} (printed, not held: the router "
+        f"moves tokens to other experts on last-bit differences)")
+    log(f"[moe] 14a ServeEngine: {sv['stats']['completed']} requests in "
+        f"{sv['clock']} engine steps, {sv['steps']} decode steps in "
+        f"{sv['wall_s']:.2f} s ({sv['ms_per_step']:.2f} ms a step against a "
+        f"bound of {sv['bound_ms']:.2f} ms, every parameter read once on "
+        f"the one-hot route; {sv['tok_per_s']:.1f} generated tok/s; peak "
+        f"{gb(sv['peak_gb'])}); stats equal the golden; profiler: "
+        f"{sv['profile'] or 'not measured'}; {nvidia_smi()}")
+    r["ssm"] = m = run_ssm_full(dev, kops)
+    sv = m["serve"]
+    b, s = SSM_PREFILL
+    log(f"[ssm] 14b rwkv6-1.6b full width: {m['n_params']:,} parameters "
+        f"({m['param_gb']:.2f} GB) in {m['init_s']:.1f} s; prefill B={b} "
+        f"S={s} {m['prefill']['wall_s']:.2f} s "
+        f"({m['prefill']['tok_per_s']:,.0f} tok/s, the time loop; peak "
+        f"{gb(m['prefill']['peak_gb'])}); ServeEngine: "
+        f"{sv['stats']['completed']} requests, {sv['steps']} decode steps "
+        f"in {sv['wall_s']:.2f} s ({sv['ms_per_step']:.2f} ms a step, bound "
+        f"{sv['bound_ms']:.3f} ms; {sv['tok_per_s']:.1f} generated tok/s; "
+        f"peak {gb(sv['peak_gb'])}); stats equal the golden; profiler: "
+        f"{sv['profile'] or 'not measured'}; {nvidia_smi()}")
+    r["golden"] = {}
+    for path in (MOE_GOLDEN, SSM_GOLDEN):
+        golden = json.load(open(path))
+        t1 = time.time()
+        g = r["golden"][golden["arch"]] = check_family_golden(golden, dev)
+        log(f"[golden] 14g {golden['arch']} full width, "
+            f"{golden['n_layers']} layers, B={golden['batch']} "
+            f"S={golden['seq']}: both prefill routes and "
+            f"{len(golden['decode'])} decode steps match the JAX logits "
+            f"(worst {g['worst_rel']:.4g} x max|logit|, bar {g['bar']:.4g}; "
+            f"argmax near ties {g['ties']}; rows on other experts than the "
+            f"golden's, each a router near tie, not held: {g['flips']}; the "
+            f"decode steps' sampled and "
+            f"top-8 logits, not held, as in 8g: {g['decode_values']:.4g}); "
+            f"weights {g['weights_s']:.1f} s, "
+            f"{time.time() - t1:.1f} s")
+    r["compress"] = c = check_compress(dev)
+    log(f"[compress] 14c quantize bitwise its CPU result; "
+        f"quantized_psum_tree over a world of one ({c['leaves']} leaves, "
+        f"{c['elements']:,} f32 elements of {COMPRESS_ARCH}'s full-width "
+        f"shapes) {c['wall_s'] * 1e3:.1f} ms, worst |psum - x| "
+        f"{c['worst_rel']:.6g} x scale")
+    r["wall_s"] = time.time() - t0
+    log(f"[families] phase 14: {r['wall_s']:.1f} s")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 13: training on the card
 # ---------------------------------------------------------------------------
 def train_bars(golden: dict) -> dict:
@@ -2553,7 +2998,8 @@ def main() -> int:
         return 2
     if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN,
                                            SCHED, SERVE_REPLAY,
-                                           TRAIN_GOLDEN)):
+                                           TRAIN_GOLDEN, MOE_GOLDEN,
+                                           SSM_GOLDEN)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -3302,6 +3748,10 @@ def main() -> int:
     # 13. training: qwen3-1.7b train steps at full width, the training
     # golden, the Trainer's resume on the card
     run_phase13(dev)
+
+    # 14. the moe and ssm families: qwen2-moe-a2.7b and rwkv6-1.6b at full
+    # width (prefill, the server), their goldens, compression
+    run_phase14(dev, fops, kops)
 
     # 3b. the kernels at the shapes the paths handed them
     kernels = []

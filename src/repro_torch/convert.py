@@ -9,6 +9,7 @@ arrays of the tree's types, the port through ``lm_params_from_numpy``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List
 
@@ -94,23 +95,92 @@ def _dense_layout(cfg: ModelConfig) -> Dict[str, tuple]:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class Fill:
+    """A layout leaf of one constant, not drawn.  ``meta``: a zero-filled
+    ``_shape`` leaf that the JAX code reads shapes from; the port's module
+    keeps it as Python ints, not as a parameter."""
+    value: float
+    meta: bool = False
+
+
+def _moe_layout(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The ``moe`` family's leaves: the dense layout without the MLP, then
+    the router (scale 0.02), the stacked experts and the shared SwiGLU.
+    The experts take the reference's scale 1/sqrt(shape[0]) of ``[E, d,
+    f]``, whose fan-in is E (``src/repro/models/moe.py:58-60``)."""
+    d, n, e, f = cfg.d_model, cfg.n_layers, cfg.n_experts, cfg.expert_d_ff
+    out = {k: v for k, v in _dense_layout(cfg).items()
+           if not k.startswith("layers/mlp/")}
+    out["layers/moe/router"] = ((n, d, e), 0.02)
+    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                        ("w_down", (e, f, d))):
+        out[f"layers/moe/{name}"] = ((n,) + shape, 1 / math.sqrt(shape[0]))
+    if cfg.n_shared_experts > 0:
+        sf = f * max(cfg.n_shared_experts, 1)
+        for name, shape in (("w_gate", (d, sf)), ("w_up", (d, sf)),
+                            ("w_down", (sf, d))):
+            out[f"layers/moe/shared/{name}"] = ((n,) + shape,
+                                                1 / math.sqrt(shape[0]))
+    return out
+
+
+def _ssm_layout(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The ``ssm`` (RWKV6) family's leaves, in ``rwkv_init``'s draw order:
+    the mixes 0.5, ``decay_bias`` -6, ``bonus`` zeros, ``ln_x`` ones and
+    the zero ``_shape`` leaf [n_heads, d_head] beside the drawn weights."""
+    d, n, f, nh = cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.ssm_heads
+    dh = d // nh
+    t = "layers/tm/"
+    out = {"embed/table": ((cfg.vocab, d), 0.02), "ln_f/scale": ((d,), None),
+           "layers/ln1/scale": ((n, d), None),
+           "layers/ln2/scale": ((n, d), None)}
+    for m in "rkvwg":
+        out[f"{t}mix_{m}"] = ((n, d), Fill(0.5))
+    for name in ("w_r", "w_k", "w_v", "w_g"):
+        out[t + name] = ((n, d, d), 1 / math.sqrt(d))
+    out[t + "w_decay"] = ((n, d, d), 0.01)
+    out[t + "decay_bias"] = ((n, d), Fill(-6.0))
+    out[t + "bonus"] = ((n, nh, dh), 0.0)
+    out[t + "w_o"] = ((n, d, d), 1 / math.sqrt(d))
+    out[t + "ln_x"] = ((n, d), None)
+    out[t + "cm_mix_k"] = ((n, d), Fill(0.5))
+    out[t + "cm_wk"] = ((n, d, f), 1 / math.sqrt(d))
+    out[t + "cm_wv"] = ((n, f, d), 1 / math.sqrt(f))
+    out[t + "_shape"] = ((n, nh, dh), Fill(0.0, meta=True))
+    return out
+
+
+def _layout(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The parameter leaves of ``cfg``'s family as path -> (shape, scale):
+    a fan-in scale, None for ones, 0.0 for zeros or a ``Fill``."""
+    from .models import lm
+    lm._ported_only(cfg)
+    return {"dense": _dense_layout, "moe": _moe_layout,
+            "ssm": _ssm_layout}[cfg.family](cfg)
+
+
+def _is_meta(spec: tuple) -> bool:
+    return isinstance(spec[1], Fill) and spec[1].meta
+
+
 def lm_numpy_params(cfg: ModelConfig, seed: int = 0) -> Dict:
-    """A seeded parameter tree of the dense family in the JAX package's
+    """A seeded parameter tree of a ported family in the JAX package's
     layout: nested dicts with the shapes of ``jax.eval_shape(
     lm.init_params)``, the JAX package's scales (0.02 for the table,
-    1/sqrt(fan_in) for the weights, ones for the norm scales), f32 normal
-    draws from ``numpy.random.default_rng(seed)`` in the order of
-    ``_dense_layout``, rounded to bf16 and held as f32 arrays.  Every value
-    is exact in its leaf's type (bf16 weights, f32 norm scales)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: ROADMAP.md "
-            f"Queue 1 item 13")
+    1/sqrt(fan_in) for the weights, ones for the norm scales) and
+    constants, f32 normal draws from ``numpy.random.default_rng(seed)`` in
+    the order of the family's layout (``_dense_layout`` for the dense
+    family), rounded to bf16 and held as f32 arrays.  Every value is exact
+    in its leaf's type (bf16 weights, f32 norm scales and constants)."""
+    layout = _layout(cfg)
     rng = np.random.default_rng(seed)
     flat = {}
-    for path, (shape, scale) in _dense_layout(cfg).items():
+    for path, (shape, scale) in layout.items():
         if scale is None:
             a = np.ones(shape, np.float32)
+        elif isinstance(scale, Fill):
+            a = np.full(shape, scale.value, np.float32)
         elif scale == 0.0:
             a = np.zeros(shape, np.float32)
         else:
@@ -128,7 +198,7 @@ def lm_params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda"):
     its parameter's type."""
     from .models import lm
     dev = _device.resolve(device)
-    lm._dense_only(cfg)
+    lm._ported_only(cfg)
     model = lm.LM(None, cfg, dev)
     with torch.no_grad():
         for name, a in _unstack(cfg, tree):
@@ -150,7 +220,9 @@ def _unstack(cfg: ModelConfig, tree: Dict):
     """(parameter name, f32 CPU tensor) for each leaf of a tree in the JAX
     layout (numpy arrays or tensors), the stacked leaves split over the
     blocks."""
-    for path in _dense_layout(cfg):
+    for path, spec in _layout(cfg).items():
+        if _is_meta(spec):
+            continue
         a = tree
         for key in path.split("/"):
             a = a[key]
@@ -167,7 +239,10 @@ def _stack(cfg: ModelConfig, get) -> Dict[str, torch.Tensor]:
     """path -> a new CPU tensor of the JAX layout, from ``get(name)`` of
     each parameter name, the blocks stacked on axis 0."""
     flat = {}
-    for path in _dense_layout(cfg):
+    for path, spec in _layout(cfg).items():
+        if _is_meta(spec):
+            flat[path] = torch.zeros(spec[0], dtype=torch.float32)
+            continue
         ts = [get(name).detach().cpu() for name in _names(cfg, path)]
         flat[path] = (torch.stack(ts) if path.startswith("layers/")
                       else ts[0].clone())
@@ -190,7 +265,7 @@ def lm_tree_from_params(params, cfg: ModelConfig) -> Dict:
     dicts of new CPU tensors in the parameters' types, the blocks stacked
     on axis 0."""
     from .models import lm
-    lm._dense_only(cfg)
+    lm._ported_only(cfg)
     return _nest(_stack(cfg, params.get_parameter))
 
 
@@ -199,7 +274,7 @@ def lm_numpy_from_params(params, cfg: ModelConfig) -> Dict:
     numpy tree of the JAX package's layout (f32 arrays, every value exact in
     its parameter's type, as ``lm_numpy_params`` makes them)."""
     from .models import lm
-    lm._dense_only(cfg)
+    lm._ported_only(cfg)
     return _nest({k: t.float().numpy()
                   for k, t in _stack(cfg, params.get_parameter).items()})
 
@@ -210,7 +285,7 @@ def opt_state_to_numpy(state, cfg: ModelConfig):
     trees of its layout (blocks stacked), ``step`` a 0-d int32 array."""
     from .models import lm
     from .optim import OptState
-    lm._dense_only(cfg)
+    lm._ported_only(cfg)
 
     def tree(moments):
         return _nest({k: t.numpy()
@@ -227,7 +302,7 @@ def opt_state_from_numpy(state, cfg: ModelConfig, device="cuda"):
     from .models import lm
     from .optim import OptState
     dev = _device.resolve(device)
-    lm._dense_only(cfg)
+    lm._ported_only(cfg)
     m, v, step = state
 
     def moments(tree):

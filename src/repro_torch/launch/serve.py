@@ -5,7 +5,9 @@
         --requests 12 [--no-hydra] [--device cpu]
 
 As the JAX launcher, it serves the arch's reduced config with weights from
-seed 0 and prints the engine's stats.  The device defaults to the card.
+seed 0 and prints the engine's stats; every ported family serves (dense,
+moe: ``--arch qwen2-moe-a2.7b`` or ``mixtral-8x22b``, ssm: ``--arch
+rwkv6-1.6b``).  The device defaults to the card.
 """
 import argparse
 

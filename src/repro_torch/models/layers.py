@@ -122,6 +122,15 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ p.table.float().T
 
 
+# --- products ----------------------------------------------------------------
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted type of the two, as ``jnp.matmul`` computes
+    an f32 activation times a bf16 weight (torch's ``@`` refuses mixed
+    types)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t) @ b.to(t)
+
+
 # --- MLPs --------------------------------------------------------------------
 class SwiGLU(nn.Module):
     def __init__(self, gen: torch.Generator, d: int, d_ff: int, device=None):
@@ -137,8 +146,8 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ p.w_gate)
-    return (g * (x @ p.w_up)) @ p.w_down
+    g = F.silu(mm(x, p.w_gate))
+    return mm(g * mm(x, p.w_up), p.w_down)
 
 
 class GeluMLP(nn.Module):

@@ -158,3 +158,52 @@ def test_port_matches_lm_golden_on_the_cpu():
     eng = cs.run_engine(cfg, params, golden["serve"], "cpu")
     assert eng["stats"] == golden["serve"]["stats"]
 
+
+
+FAMILY_GOLDEN_FILES = {"moe_golden": "qwen2_moe_a2_7b_w1_serve.json",
+                       "ssm_golden": "rwkv6_1_6b_w2_serve.json"}
+
+
+@pytest.mark.parametrize("mode", sorted(FAMILY_GOLDEN_FILES))
+def test_family_golden_file_is_the_reference(mode, tmp_path):
+    """The moe and ssm serving goldens are what the JAX package computes
+    (``FAMILY_GOLDENS`` of the reference child), with its own route gaps;
+    chip_smoke.py phase 14g takes its bar from them."""
+    from test_torch_models import LOGIT_RTOL
+    from test_torch_sim import FAMILY_GOLDENS
+    fresh = _fresh(tmp_path, mode)
+    with open(os.path.join(GOLDEN_DIR, FAMILY_GOLDEN_FILES[mode])) as f:
+        committed = json.load(f)
+    assert committed == fresh
+    spec = FAMILY_GOLDENS[mode]
+    assert {k: committed[k] for k in spec} == spec
+    assert committed["ref_gap"] == committed["route_gaps"]["attention"]
+    assert len(committed["decode"]) == spec["decode_steps"]
+    if "moe" in mode:
+        assert committed["topk_flips"]["of"] == (
+            spec["batch"] * spec["seq"] * 4)
+        assert len(committed["router"]) == 1 + spec["decode_steps"]
+    assert committed["serve"]["stats"]["completed"] == len(
+        committed["serve"]["requests"])
+    assert _chip_smoke().family_bar(committed) == max(
+        2 * committed["ref_gap"], LOGIT_RTOL)
+
+
+@pytest.mark.usefixtures("torch_one_thread")
+@pytest.mark.parametrize("mode", sorted(FAMILY_GOLDEN_FILES))
+def test_port_matches_family_golden_on_the_cpu(mode):
+    """chip_smoke.py's phase 14g check on the CPU (the full-width model
+    with the golden's depth: both prefill routes and the decode steps
+    against the JAX logits), and the engine's stats on the reduced arch
+    (they depend on scheduling only)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    cs = _chip_smoke()
+    with open(os.path.join(GOLDEN_DIR, FAMILY_GOLDEN_FILES[mode])) as f:
+        golden = json.load(f)
+    got = cs.check_family_golden(golden, "cpu")
+    assert got["worst_rel"] <= cs.family_bar(golden)
+    cfg = get_arch(golden["arch"]).reduced()
+    params = lm_params_from_numpy(lm_numpy_params(cfg, seed=0), cfg, "cpu")
+    eng = cs.run_engine(cfg, params, golden["serve"], "cpu")
+    assert eng["stats"] == golden["serve"]["stats"]

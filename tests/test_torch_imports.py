@@ -75,5 +75,6 @@ def test_every_port_module_is_checked():
                  "kernels/llc_rounds/kernel.py", "serve/trace.py",
                  "serve/replay.py", "serve/api.py", "optim/adamw.py",
                  "optim/__init__.py", "data/pipeline.py", "ckpt/manager.py",
-                 "train/trainer.py", "launch/train.py"):
+                 "train/trainer.py", "launch/train.py",
+                 "optim/compress.py", "models/moe.py", "models/ssm.py"):
         assert must in names

@@ -378,9 +378,26 @@ def test_init_refuses_a_generator_on_another_device():
 @pytest.mark.parametrize("arch", sorted(a for a in ARCHS
                                         if ARCHS[a].family != "dense"))
 def test_other_families_raise(arch):
-    """moe, ssm, hybrid, encdec and vlm are queued (ROADMAP.md Queue 1
-    item 13): every model entry point says so."""
+    """The non-dense families: moe and ssm are ported, and every model
+    entry point runs at ``.reduced()`` on the CPU with finite outputs of
+    the JAX shapes (their parity is tests/test_torch_families.py); hybrid,
+    encdec and vlm are queued (ROADMAP.md Queue 1 item 13d), and every
+    model entry point says so."""
     cfg = get_arch(arch).reduced()
+    if cfg.family in ("moe", "ssm"):
+        params = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        tree = lm_numpy_params(cfg)
+        assert all(np.isfinite(a).all() for _, a in _leaves(tree))
+        tok = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, 8)))
+        with torch.inference_mode():
+            h = tlm.hidden(params, cfg, {"tokens": tok})
+            state = tlm.init_decode_state(params, cfg, 2, 8)
+            lg, state = tlm.decode_step(params, cfg, state, tok[:, :1])
+        assert h.shape == (2, 8, cfg.d_model) and bool(h.isfinite().all())
+        assert lg.shape == (2, 1, cfg.vocab) and bool(lg.isfinite().all())
+        assert state.pos == 1
+        return
     calls = [lambda: tlm.init_params(torch.Generator(), cfg, "cpu"),
              lambda: tlm.hidden(None, cfg, {}),
              lambda: tlm.init_decode_state(None, cfg, 1, 8),

@@ -80,6 +80,20 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 the committed file with ``PYTHONPATH=src JAX_PLATFORMS=cpu
                 python tests/test_torch_sim.py train_golden
                 src/repro_torch/golden/qwen3_1_7b_w2_train.json``.
+* ``moe_golden`` / ``ssm_golden`` -- qwen2-moe-a2.7b at full width with 1
+                layer and rwkv6-1.6b at full width with 2 layers
+                (``FAMILY_GOLDENS``) on ``convert.lm_numpy_params(cfg,
+                seed=0)``: last-token logits of both prefill routes at B=2,
+                S=256 and 8 decode steps (each with its top 8), the JAX
+                package's own gaps between its routes (``ref_gap``: flash
+                versus plain attention; for moe also the sorted versus
+                einsum dispatch and the count of top-k selections that
+                differ between the attention routes), and the serving run
+                on the reduced arch, as JSON: what ``chip_smoke.py`` phase
+                14g holds the card to.  Regenerate the committed files with
+                ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
+                moe_golden src/repro_torch/golden/qwen2_moe_a2_7b_w1_serve.json``
+                and ``... ssm_golden src/repro_torch/golden/rwkv6_1_6b_w2_serve.json``.
 """
 import dataclasses
 import json
@@ -176,6 +190,14 @@ LM_GOLDEN = dict(n_layers=2, seed=0, batch=2, seq=512, decode_steps=8,
 # the training golden: the serving golden's model, three train steps
 TRAIN_GOLDEN = dict(n_layers=2, seed=0, batch=1, seq=256, steps=3,
                     lr_peak=3e-4, lr_warmup=1, lr_total=10, data_seed=0)
+# the moe and ssm goldens: full width, depth cut, B=2, S=256
+FAMILY_GOLDENS = {
+    "moe_golden": dict(arch="qwen2-moe-a2.7b", n_layers=1, seed=0, batch=2,
+                       seq=256, decode_steps=8, decode_s_max=16,
+                       n_sampled=64),
+    "ssm_golden": dict(arch="rwkv6-1.6b", n_layers=2, seed=0, batch=2,
+                       seq=256, decode_steps=8, decode_s_max=16,
+                       n_sampled=64)}
 SERVE_RUN = dict(slots=4, s_max=256, max_steps=4000, token_budget=4096,
                  deadline_tokens=128, profile_seed=0)
 SESSIONS = 64          # seeded session features the profile is fit on
@@ -757,6 +779,158 @@ def _lm_golden_child(out: str) -> None:
         f.write("\n")
 
 
+def family_golden_inputs(spec: dict, vocab: int):
+    """A family golden's prompt tokens [B, S] and sampled logit indices."""
+    rng = np.random.default_rng(spec["seed"])
+    tokens = rng.integers(0, vocab, (spec["batch"], spec["seq"]))
+    sample = rng.integers(0, vocab, spec["n_sampled"])
+    return tokens.astype(np.int32), sample
+
+
+def _moe_topk_flips(params, cfg, tokens) -> dict:
+    """The first layer's top-k selections on the flash and the plain
+    attention route: how many of the B * S * k differ (the whole story at
+    one layer, where the MoE follows the only attention), and the largest
+    difference of a router logit between the routes (``router_gap``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention, layers as L
+    lp = jax.tree.map(lambda a: a[0], params["layers"])
+    x = L.embed(params["embed"], jnp.asarray(tokens))
+    sel, logit = {}, {}
+    for flash in (True, False):
+        h = attention.attention(
+            lp["attn"], L.rmsnorm(lp["ln1"], x), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv, d_head=cfg.d_head, window=cfg.window,
+            rope_theta=cfg.rope_theta, use_flash=flash)
+        y = L.rmsnorm(lp["ln2"], x + h)
+        logits = (y.astype(jnp.float32)
+                  @ lp["moe"]["router"].astype(jnp.float32))
+        sel[flash] = np.asarray(jax.lax.top_k(logits, cfg.top_k)[1])
+        logit[flash] = np.asarray(logits)
+    return {"differ": int((sel[True] != sel[False]).sum()),
+            "of": int(sel[True].size),
+            "router_gap": float(np.abs(logit[True] - logit[False]).max())}
+
+
+ROUTER_TOP = 8   # router logits a golden keeps of each token it records
+
+
+def _recording_dispatch(moe, log: list):
+    """``moe.dispatch`` that also hands the top ``ROUTER_TOP`` router
+    logits of each call's tokens ([B, S, ROUTER_TOP] values and expert ids)
+    to ``log`` through a debug callback; the dispatch itself is
+    untouched."""
+    import jax
+    import jax.numpy as jnp
+    dispatch = moe.dispatch
+
+    def record(vals, idx):
+        log.append((np.asarray(vals), np.asarray(idx)))
+
+    def recording(p, x, *, top_k, capacity_factor=1.25):
+        logits = x.astype(jnp.float32) @ p["router"].astype(jnp.float32)
+        jax.debug.callback(record, *jax.lax.top_k(logits, ROUTER_TOP),
+                           ordered=True)
+        return dispatch(p, x, top_k=top_k, capacity_factor=capacity_factor)
+    return recording
+
+
+def router_rows(vals, idx) -> list:
+    """The last token's recorded router logits of each batch row."""
+    return [{"idx": i[-1].tolist(), "val": v[-1].tolist()}
+            for v, i in zip(vals, idx)]
+
+
+def _family_golden_child(mode: str, out: str) -> None:
+    import dataclasses as dc
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro import serve
+    from repro.models import lm, moe
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.configs import get_arch as port_arch
+    spec = FAMILY_GOLDENS[mode]
+    arch, n = spec["arch"], spec["n_layers"]
+    cfg = dc.replace(get_arch(arch), n_layers=n)
+    params = _jax_params(cfg, lm_numpy_params(
+        dc.replace(port_arch(arch), n_layers=n), seed=spec["seed"]))
+    tokens, sample = family_golden_inputs(spec, cfg.vocab)
+
+    def prefill(flash):
+        fn = jax.jit(lambda p, t: lm.forward(p, cfg, {"tokens": t},
+                                             use_flash=flash,
+                                             last_only=True))
+        return np.asarray(fn(params, jnp.asarray(tokens)))[:, 0]
+
+    def decode_logits():
+        state = lm.init_decode_state(params, cfg, spec["batch"],
+                                     spec["decode_s_max"])
+        step = jax.jit(lambda p, s, t: lm.decode_step(p, cfg, s, t))
+        out = []
+        for t in range(spec["decode_steps"]):
+            lg, state = step(params, state,
+                             jnp.asarray(tokens[:, t:t + 1]))
+            out.append(np.asarray(lg)[:, 0])
+        return out
+
+    raw = {"flash": prefill(True), "plain": prefill(False)}
+    scale = np.abs(raw["flash"]).max()
+    gaps = {"attention": float(np.abs(raw["flash"] - raw["plain"]).max()
+                               / scale)}
+    doc = {}
+    if cfg.family == "moe":
+        moe.IMPL = "einsum"
+        try:
+            einsum = prefill(True)
+        finally:
+            moe.IMPL = "sorted"
+        gaps["dispatch"] = float(np.abs(raw["flash"] - einsum).max() / scale)
+        flips = _moe_topk_flips(params, cfg, tokens)
+        doc["router_gap"] = flips.pop("router_gap")
+        doc["topk_flips"] = flips
+    dec = decode_logits()
+    if cfg.family == "moe" and n == 1:
+        # the router's choices of the golden's tokens, recorded in a second
+        # run that must give the same logits bit for bit
+        log = []
+        moe.dispatch, plain = _recording_dispatch(moe, log), moe.dispatch
+        try:
+            again = [prefill(True)] + decode_logits()
+        finally:
+            moe.dispatch = plain
+        jax.effects_barrier()
+        if not all(np.array_equal(a, b) for a, b in
+                   zip([raw["flash"]] + dec, again)):
+            raise SystemExit("the recording run changed the logits")
+        doc["router"] = [router_rows(*rec) for rec in log]
+    decode = [logit_digest(lg, sample) for lg in dec]
+    # the engine's stats depend on scheduling only: the reduced arch
+    small = get_arch(arch).reduced()
+    sparams = _jax_params(small, lm_numpy_params(port_arch(arch).reduced(),
+                                                 seed=0))
+    sched = engine_cases(serve)["hydra"]()
+    _, stats = _jax_engine(small, sparams, sched)
+    turns, gaps_s = session_features()
+    doc.update({
+        **spec, "sample_idx": sample.tolist(), "ref_gap": gaps["attention"],
+        "route_gaps": gaps,
+        "prefill": {r: logit_digest(v, sample) for r, v in raw.items()},
+        "decode": decode,
+        "serve": dict(SERVE_RUN, requests=serve_requests(),
+                      session_turns=turns.tolist(),
+                      session_gaps=gaps_s.tolist(),
+                      profile={"rc_centers": sched.profile.rc_centers
+                               .tolist(),
+                               "ri_centers": sched.profile.ri_centers
+                               .tolist()},
+                      stats=stats)})
+    with open(out, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def leaf_norms(tree) -> dict:
     """Each leaf's L2 norm (f64 over the f32 values), per layer for the
     stacked ``layers`` leaves, keyed by path."""
@@ -899,6 +1073,8 @@ def _child_main(mode: str, out: str) -> None:
         _lm_golden_child(out)
     elif mode == "train_golden":
         _train_golden_child(out)
+    elif mode in FAMILY_GOLDENS:
+        _family_golden_child(mode, out)
     elif mode == "replay":
         _replay_child(out)
     elif mode == "serve_replay":
