@@ -172,6 +172,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import os
@@ -214,14 +215,16 @@ FLASH_RTOL = 2 ** -7
 FLASH_ATOL = 2 ** -12
 # tests/test_kernels.py::test_flash_attention
 FLASH_CASES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 384, 8, 1, 128),
-               (2, 128, 4, 4, 32))
+               (2, 128, 4, 4, 32), (1, 256, 8, 1, 256))
 # what the Hopper kernel's tiling makes new: (B, Sq, Sk, H, Hkv, d), causal
 # -- one ragged block (Sq = Sk = 100 < 128), Sq != Sk (three key blocks
 # for one query tile), and many query tiles at d = 64
 FLASH_EDGE = (((1, 100, 100, 2, 2, 64), True),
               ((1, 100, 100, 2, 2, 64), False),
               ((2, 128, 384, 4, 2, 128), False),
-              ((1, 4096, 4096, 16, 8, 64), True))
+              ((1, 4096, 4096, 16, 8, 64), True),
+              ((1, 100, 100, 8, 1, 256), True),
+              ((2, 128, 384, 8, 1, 256), False))
 
 # phase 13a: qwen3-1.7b train steps at the train_4k shape (S=4096) with
 # its global batch cut from 256 to 1; lr_warmup=1, so step 0 has lr 0 and
@@ -1575,9 +1578,10 @@ def logits_close(got, want, what, rtol: float = LOGIT_RTOL) -> float:
     return rel
 
 
-def prefill(cfg, params, b, s, dev, seed=0) -> dict:
+def prefill(cfg, params, b, s, dev, seed=0, extra=None) -> dict:
     """Last-token logits of the prefill routes at [B, S] (seeded tokens
-    on the card), timed: the flash route through the kernel; the same route
+    on the card, and the batch entries ``extra``), timed: the flash route
+    through the kernel; the same route
     with ``mha_plain`` in the kernel's place, where each layer's kernel
     output on the same q, k, v is held to ``mha_plain``'s per element
     (``flash_diff``); and the other route (chunked from 8192 tokens on, else dense).
@@ -1587,7 +1591,7 @@ def prefill(cfg, params, b, s, dev, seed=0) -> dict:
     from repro_torch.train import make_prefill_step
     gen = torch.Generator(dev).manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
-                                     device=dev)}
+                                     device=dev), **(extra or {})}
     out = {}
     kernel = fops.mha
     layers = []
@@ -1631,23 +1635,20 @@ def prefill(cfg, params, b, s, dev, seed=0) -> dict:
     return out
 
 
-def check_lm_golden(golden: dict, dev) -> dict:
+def check_lm_golden(golden: dict, dev, tree=None) -> dict:
     """Phase 8g: qwen3-1.7b at full width with the golden's depth on
     ``convert.lm_numpy_params`` -- both prefill routes and the decode
     steps held to the JAX package's logits (its flash route) with the
     model-level tolerance."""
-    import dataclasses
     import numpy as np
     import torch
     from repro_torch import convert
-    from repro_torch.configs import get_arch
     from repro_torch.models import lm
     from repro_torch.train import make_prefill_step, make_serve_step
-    cfg = dataclasses.replace(get_arch(golden["arch"]),
-                              n_layers=golden["n_layers"])
+    cfg = golden_config(golden)
     t0 = time.perf_counter()
     params = convert.lm_params_from_numpy(
-        convert.lm_numpy_params(cfg, seed=golden["seed"]), cfg, dev)
+        golden_tree(golden) if tree is None else tree, cfg, dev)
     t_weights = time.perf_counter() - t0
     rng = np.random.default_rng(golden["seed"])
     tokens = rng.integers(0, cfg.vocab, (golden["batch"], golden["seq"]))
@@ -1792,8 +1793,9 @@ def hold_digest(lg, want: dict, sample_idx, bar: float, what,
     for row, a in enumerate(lg.argmax(-1).tolist()):
         if a == top[row, 0]:
             continue
-        vals = dict(zip(top[row].tolist(), want["top8_val"][row]))
-        if a not in vals or vals[top[row, 0]] - vals[a] > 2 * bar * scale:
+        row_vals = dict(zip(top[row].tolist(), want["top8_val"][row]))
+        if a not in row_vals or \
+                row_vals[top[row, 0]] - row_vals[a] > 2 * bar * scale:
             raise AssertionError(f"{what}: argmax {a} != golden "
                                  f"{top[row, 0]} (row {row}), no near tie")
         ties += 1
@@ -1840,35 +1842,71 @@ def flipped_rows(sel, rows: list, k: int, router_gap: float, what) -> set:
     return flipped
 
 
-def check_family_golden(golden: dict, dev) -> dict:
-    """Phase 14g: a moe or ssm arch at full width with the golden's depth
-    on ``convert.lm_numpy_params`` -- both prefill routes' last-token
-    logits and the decode steps held to the JAX package's (its flash
-    route) within ``family_bar``, the components and argmax as phase 8g
-    holds them (``hold_digest``).  At one moe layer a token's logits
-    follow from its own router choice: a row whose choice differs from the
-    golden's (``flipped_rows``, a near tie of the router) is counted and
-    not held."""
-    import dataclasses
+def golden_embeds(golden: dict, cfg, dev) -> dict:
+    """A vlm or encdec golden's frontend stand-ins
+    (``convert.lm_numpy_embeds``) as bf16 tensors on ``dev``, checked
+    against the digest the JAX child recorded; {} for the other
+    families."""
     import numpy as np
     import torch
     from repro_torch import convert
+    embeds = convert.lm_numpy_embeds(cfg, golden["batch"], golden["seed"])
+    digest = {k: [float(v.astype(np.float64).sum()),
+                  float(np.abs(v).astype(np.float64).sum())]
+              for k, v in embeds.items()}
+    if digest != golden.get("embeds_digest", {}):
+        raise AssertionError(f"the seeded embeddings {digest} differ from "
+                             f"the golden's {golden.get('embeds_digest')}")
+    return {k: torch.as_tensor(v).to(dev, torch.bfloat16)
+            for k, v in embeds.items()}
+
+
+def golden_config(golden: dict):
+    """A family golden's arch at full width with the golden's depth."""
     from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(golden["arch"]),
+                               n_layers=golden["n_layers"])
+
+
+def golden_tree(golden: dict) -> dict:
+    """The golden's seeded numpy parameter tree (``convert.lm_numpy_params``;
+    host work only: numpy's draws release the GIL, so a thread can make it
+    while the card runs other work)."""
+    from repro_torch import convert
+    return convert.lm_numpy_params(golden_config(golden),
+                                   seed=golden["seed"])
+
+
+def check_family_golden(golden: dict, dev, tree=None) -> dict:
+    """Phases 14g and 15g: an arch at full width with the golden's depth
+    on ``convert.lm_numpy_params`` (and, for vlm and encdec, the seeded
+    frontend embeddings, ``golden_embeds``) -- both prefill routes'
+    last-token logits and the decode steps (encdec: after
+    ``prime_encdec``) held to the JAX package's (its flash route) within
+    ``family_bar``, the components and argmax as phase 8g holds them
+    (``hold_digest``).  At one moe layer a token's logits follow from its
+    own router choice: a row whose choice differs from the golden's
+    (``flipped_rows``, a near tie of the router) is counted and not
+    held.  ``tree``: the golden's parameter tree if made already
+    (``golden_tree``)."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
     from repro_torch.models import lm, moe as moe_mod
     from repro_torch.train import make_prefill_step, make_serve_step
-    cfg = dataclasses.replace(get_arch(golden["arch"]),
-                              n_layers=golden["n_layers"])
+    cfg = golden_config(golden)
     t0 = time.perf_counter()
     params = convert.lm_params_from_numpy(
-        convert.lm_numpy_params(cfg, seed=golden["seed"]), cfg, dev)
+        golden_tree(golden) if tree is None else tree, cfg, dev)
     t_weights = time.perf_counter() - t0
     rng = np.random.default_rng(golden["seed"])
     tokens = rng.integers(0, cfg.vocab, (golden["batch"], golden["seq"]))
     if rng.integers(0, cfg.vocab, golden["n_sampled"]).tolist() != \
             golden["sample_idx"]:
-        raise AssertionError("14g: the seeded inputs differ from the "
-                             "golden's")
+        raise AssertionError(f"{golden['arch']} golden: the seeded inputs "
+                             f"differ from the golden's")
     tok = torch.as_tensor(tokens, device=dev)
+    extra = golden_embeds(golden, cfg, dev)
     idx = np.asarray(golden["sample_idx"])
     bar = family_bar(golden)
     router = RouterLog(moe_mod) if "router" in golden else None
@@ -1890,18 +1928,22 @@ def check_family_golden(golden: dict, dev) -> dict:
 
     try:
         for route, flash in (("flash", True), ("plain", False)):
-            lg = make_prefill_step(cfg, use_flash=flash)(params,
-                                                         {"tokens": tok})
+            lg = make_prefill_step(cfg, use_flash=flash)(
+                params, {"tokens": tok, **extra})
             hold(lg, golden["prefill"]["flash"],
-                 f"14g {golden['arch']} {route} prefill", 0)
+                 f"{golden['arch']} golden: {route} prefill", 0)
         n_prefill = len(held)
         state = lm.init_decode_state(params, cfg, golden["batch"],
                                      golden["decode_s_max"])
+        if cfg.family == "encdec":
+            with torch.inference_mode():
+                state = lm.prime_encdec(params, cfg, extra["enc_embeds"],
+                                        state)
         step = make_serve_step(cfg)
         for t, want in enumerate(golden["decode"]):
             lg, state = step(params, state, tok[:, t:t + 1])
-            hold(lg, want, f"14g {golden['arch']} decode step {t}", t + 1,
-                 values=False)
+            hold(lg, want, f"{golden['arch']} golden: decode step {t}",
+                 t + 1, values=False)
     finally:
         if router is not None:
             router.restore()
@@ -1984,22 +2026,13 @@ def run_moe_full(dev, fops, kops) -> dict:
                                     r["flash_plain"]["logits"]),
                gap_dense=route_gap(r["flash"]["logits"],
                                    r["plain"]["logits"]))
-    dense, fit = kops.assign, kops.fit_masked
-    dense.launches = fit.launches = flash.launches = 0
-    kops.fit_segmented.launches = kops.assign_segmented.launches = 0
-    out["serve"] = serve_full(cfg, params, golden["serve"], dev)
-    counts = (fit.launches, dense.launches, kops.fit_segmented.launches,
-              kops.assign_segmented.launches, flash.launches)
-    if counts != (1, 1, 0, 0, 0):
-        raise AssertionError(f"14a serving launched kmeans_fit, "
-                             f"kmeans_assign, kmeans_fit_segmented, "
-                             f"kmeans_assign_segmented, flash {counts}; "
-                             f"want (1, 1, 0, 0, 0)")
+    out["serve"] = serve_counted("14a", cfg, params, golden["serve"], fops,
+                                 kops, dev)
     del params
     return out
 
 
-def run_ssm_full(dev, kops) -> dict:
+def run_ssm_full(dev, fops, kops) -> dict:
     """14b: rwkv6-1.6b at full width (24 layers, seeded weights on the
     card): prefill at ``SSM_PREFILL`` (the time loop: a few torch ops a
     step and layer), finite logits, then ``ServeEngine`` with the
@@ -2036,12 +2069,8 @@ def run_ssm_full(dev, kops) -> dict:
     out["prefill"] = {"wall_s": wall, "tok_per_s": b * s / wall,
                       "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
                                   if cuda else None)}
-    kops.assign.launches = kops.fit_masked.launches = 0
-    out["serve"] = serve_full(cfg, params, golden["serve"], dev)
-    if (kops.fit_masked.launches, kops.assign.launches) != (1, 1):
-        raise AssertionError(f"14b serving launched kmeans_fit "
-                             f"{kops.fit_masked.launches}, kmeans_assign "
-                             f"{kops.assign.launches}; want 1 and 1")
+    out["serve"] = serve_counted("14b", cfg, params, golden["serve"], fops,
+                                 kops, dev)
     del params
     return out
 
@@ -2105,11 +2134,30 @@ def check_compress(dev) -> dict:
 
 def run_phase14(dev, fops, kops) -> dict:
     """Phase 14, the moe and ssm families: 14a qwen2-moe-a2.7b and 14b
-    rwkv6-1.6b at full width, 14g the two goldens, 14c compression."""
+    rwkv6-1.6b at full width, 14g the two goldens (their numpy parameter
+    trees made by a thread during 14a and 14b), 14c compression."""
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     t0 = time.time()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
+    goldens = [json.load(open(path)) for path in (MOE_GOLDEN, SSM_GOLDEN)]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        trees = [pool.submit(golden_tree, golden) for golden in goldens]
+        r = run_families14(dev, fops, kops, goldens, trees)
+    r["compress"] = c = check_compress(dev)
+    log(f"[compress] 14c quantize bitwise its CPU result; "
+        f"quantized_psum_tree over a world of one ({c['leaves']} leaves, "
+        f"{c['elements']:,} f32 elements of {COMPRESS_ARCH}'s full-width "
+        f"shapes) {c['wall_s'] * 1e3:.1f} ms, worst |psum - x| "
+        f"{c['worst_rel']:.6g} x scale")
+    r["wall_s"] = time.time() - t0
+    log(f"[families] phase 14: {r['wall_s']:.1f} s")
+    return r
+
+
+def run_families14(dev, fops, kops, goldens, trees) -> dict:
+    """14a, 14b, then 14g on ``goldens`` with their trees (futures)."""
     r = {"moe": run_moe_full(dev, fops, kops)}
     m = r["moe"]
     p, sv = m["prefill"], m["serve"]
@@ -2136,7 +2184,7 @@ def run_phase14(dev, fops, kops) -> dict:
         f"the one-hot route; {sv['tok_per_s']:.1f} generated tok/s; peak "
         f"{gb(sv['peak_gb'])}); stats equal the golden; profiler: "
         f"{sv['profile'] or 'not measured'}; {nvidia_smi()}")
-    r["ssm"] = m = run_ssm_full(dev, kops)
+    r["ssm"] = m = run_ssm_full(dev, fops, kops)
     sv = m["serve"]
     b, s = SSM_PREFILL
     log(f"[ssm] 14b rwkv6-1.6b full width: {m['n_params']:,} parameters "
@@ -2150,10 +2198,10 @@ def run_phase14(dev, fops, kops) -> dict:
         f"peak {gb(sv['peak_gb'])}); stats equal the golden; profiler: "
         f"{sv['profile'] or 'not measured'}; {nvidia_smi()}")
     r["golden"] = {}
-    for path in (MOE_GOLDEN, SSM_GOLDEN):
-        golden = json.load(open(path))
+    for golden, tree in zip(goldens, trees):
         t1 = time.time()
-        g = r["golden"][golden["arch"]] = check_family_golden(golden, dev)
+        g = r["golden"][golden["arch"]] = check_family_golden(
+            golden, dev, tree.result())
         log(f"[golden] 14g {golden['arch']} full width, "
             f"{golden['n_layers']} layers, B={golden['batch']} "
             f"S={golden['seq']}: both prefill routes and "
@@ -2163,16 +2211,330 @@ def run_phase14(dev, fops, kops) -> dict:
             f"golden's, each a router near tie, not held: {g['flips']}; the "
             f"decode steps' sampled and "
             f"top-8 logits, not held, as in 8g: {g['decode_values']:.4g}); "
-            f"weights {g['weights_s']:.1f} s, "
-            f"{time.time() - t1:.1f} s")
-    r["compress"] = c = check_compress(dev)
-    log(f"[compress] 14c quantize bitwise its CPU result; "
-        f"quantized_psum_tree over a world of one ({c['leaves']} leaves, "
-        f"{c['elements']:,} f32 elements of {COMPRESS_ARCH}'s full-width "
-        f"shapes) {c['wall_s'] * 1e3:.1f} ms, worst |psum - x| "
-        f"{c['worst_rel']:.6g} x scale")
+            f"weights onto the card {g['weights_s']:.1f} s (their numpy "
+            f"tree made during 14a and 14b), {time.time() - t1:.1f} s")
+    return r
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid, encdec and vlm families on the card
+HYBRID_GOLDEN = os.path.join(GOLDEN_DIR, "zamba2_2_7b_w2_serve.json")
+ENCDEC_GOLDEN = os.path.join(GOLDEN_DIR, "whisper_base_serve.json")
+VLM_GOLDEN = os.path.join(GOLDEN_DIR, "paligemma_3b_w1_serve.json")
+# (B, tokens) of 15a's prefill, after paligemma's 256 patch positions; one
+# of its layers' flash shape (B, S, H, Hkv, d), S = 256 + 3840
+VLM_PREFILL = (1, 3840)
+VLM_LAYER = (1, 4096, 8, 1, 256)
+# (B, S) of 15b's and 15c's prefill (15c: decoder tokens over 1500 frames)
+HYBRID_PREFILL = (1, 1024)
+ENCDEC_PREFILL = (8, 448)
+
+
+def full_model(arch: str, dev):
+    """``arch`` at full width with seeded weights initialised on the card:
+    (config, parameters, their count, size and init time)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                            device=dev)
+    sync(dev)
+    return cfg, params, {
+        "init_s": time.perf_counter() - t0,
+        "n_params": sum(p.numel() for p in params.parameters()),
+        "param_gb": param_bytes(params) / 1e9}
+
+
+def seeded_embeds(cfg, b: int, dev, seed: int = 0) -> dict:
+    """The stubbed frontend's stand-ins (``convert.lm_numpy_embeds``) at
+    batch ``b`` as bf16 tensors on ``dev``."""
+    import torch
+    from repro_torch import convert
+    return {k: torch.as_tensor(v).to(dev, torch.bfloat16)
+            for k, v in convert.lm_numpy_embeds(cfg, b, seed).items()}
+
+
+def serve_counted(what: str, cfg, params, golden_serve: dict, fops, kops,
+                  dev) -> dict:
+    """``serve_full`` with every count at 0 before and read after: one
+    ``kmeans_fit`` and one ``kmeans_assign`` launch (the profile fit), no
+    segmented fit, no flash launch (decode never takes it)."""
+    kops.assign.launches = kops.fit_masked.launches = fops.mha.launches = 0
+    kops.fit_segmented.launches = kops.assign_segmented.launches = 0
+    out = serve_full(cfg, params, golden_serve, dev)
+    counts = (kops.fit_masked.launches, kops.assign.launches,
+              kops.fit_segmented.launches, kops.assign_segmented.launches,
+              fops.mha.launches)
+    if counts != (1, 1, 0, 0, 0):
+        raise AssertionError(f"{what} serving launched kmeans_fit, "
+                             f"kmeans_assign, kmeans_fit_segmented, "
+                             f"kmeans_assign_segmented, flash {counts}; "
+                             f"want (1, 1, 0, 0, 0)")
+    out["kmeans_fit"] = counts[0]
+    return out
+
+
+def run_vlm_full(dev, fops, kops) -> dict:
+    """15a: paligemma-3b at full width (18 layers, H = 8, Hkv = 1, d =
+    256).  Prefill through ``make_prefill_step`` at ``VLM_PREFILL`` tokens
+    after 256 seeded patch positions: on the flash route 18 launches, all
+    on the Hopper kernel at d = 256, each layer's output held to
+    ``mha_plain`` on the same q, k, v per element (``prefill``); the
+    routes' last-token logits finite, their gaps printed.  Then the
+    ``ServeEngine`` with the ``HydraKVScheduler`` on the launcher's
+    requests: stats equal to the golden's."""
+    import numpy as np
+    import torch
+    from repro_torch.train import make_prefill_step
+    golden = json.load(open(VLM_GOLDEN))
+    cfg, params, out = full_model(golden["arch"], dev)
+    b, s = VLM_PREFILL
+    extra = seeded_embeds(cfg, b, dev)
+    # warm: the first calls of this model's GEMM shapes, off the counts
+    # (a whole number of 128-row blocks with the prefix)
+    warm = 128 - cfg.prefix_len % 128
+    make_prefill_step(cfg, use_flash=True)(params, {"tokens": torch.zeros(
+        (b, warm), dtype=torch.int64, device=dev), **extra})
+    flash = fops.mha
+    flash.launches = 0
+    flash.kernel_launches = dict.fromkeys(fops.KERNELS, 0)
+    r = prefill(cfg, params, b, s, dev, extra=extra)
+    launches = tuple(r[k]["flash_launches"]
+                     for k in ("flash", "flash_plain", "plain"))
+    by_kernel = dict(flash.kernel_launches)
+    n = cfg.n_layers
+    if launches != (n, 0, 0) or r["held"]["layers"] != n or \
+            by_kernel != {"wgmma": n, "simt": 0}:
+        raise AssertionError(f"15a prefill: flash launches {launches}, by "
+                             f"kernel {by_kernel}, {r['held']['layers']} "
+                             f"layers held; want {n}, all on the Hopper "
+                             f"kernel")
+    hold_flash(r["held"], f"15a prefill, layer {r['held']['worst_layer']}")
+    for k in ("flash", "flash_plain", "plain"):
+        if not np.isfinite(r[k]["logits"]).all():
+            raise AssertionError(f"15a {k} route: non-finite logits")
+    out.update(prefill=r, flash_launches=by_kernel["wgmma"],
+               heads=(cfg.n_heads, cfg.n_kv, cfg.d_head),
+               gap_kernel=route_gap(r["flash"]["logits"],
+                                    r["flash_plain"]["logits"]),
+               gap_dense=route_gap(r["flash"]["logits"],
+                                   r["plain"]["logits"]))
+    out["serve"] = serve_counted("15a", cfg, params, golden["serve"], fops,
+                                 kops, dev)
+    del params
+    return out
+
+
+def run_hybrid_full(dev, fops, kops) -> dict:
+    """15b: zamba2-2.7b at full width (54 Mamba2 layers, the shared block
+    9 times): prefill at ``HYBRID_PREFILL`` through
+    ``make_prefill_step(use_flash=True)`` -- no flash launch, since the
+    shared block passes its window (the dense route, as the JAX package
+    routes it); the Mamba time loop is a few torch ops a step and layer --
+    finite logits; then the ``ServeEngine``, stats equal to the golden's."""
+    import numpy as np
+    import torch
+    from repro_torch.train import make_prefill_step
+    golden = json.load(open(HYBRID_GOLDEN))
+    cfg, params, out = full_model(golden["arch"], dev)
+    b, s = HYBRID_PREFILL
+    gen = torch.Generator(dev).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    step = make_prefill_step(cfg, use_flash=True)
+    step(params, {"tokens": tok[:, :64]})            # warm: cuBLAS, allocator
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fops.mha.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tok})
+    sync(dev)
+    wall = time.perf_counter() - t0
+    if fops.mha.launches != 0:
+        raise AssertionError(f"15b prefill launched flash_attention "
+                             f"{fops.mha.launches} times; the windowed "
+                             f"shared block takes the dense route")
+    if not np.isfinite(logits.float().cpu().numpy()).all():
+        raise AssertionError("15b prefill: non-finite logits")
+    out["groups"] = max(cfg.n_layers // cfg.attn_every, 1)
+    out["prefill"] = {"wall_s": wall, "tok_per_s": b * s / wall,
+                      "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                  if cuda else None)}
+    out["serve"] = serve_counted("15b", cfg, params, golden["serve"], fops,
+                                 kops, dev)
+    del params
+    return out
+
+
+def run_encdec_full(dev, fops, kops) -> dict:
+    """15c: whisper-base whole (6 encoder and 6 decoder layers) over
+    ``enc_seq`` = 1500 seeded frames at ``ENCDEC_PREFILL``: ``encode``,
+    ``prime_encdec`` (each layer's cross K/V in bf16) and a prefill of the
+    decoder tokens, each timed, finite; no flash launch (the encoder is
+    non-causal, the decoder's attention passes no ``use_flash``).  Then the
+    ``ServeEngine``, unprimed as in the JAX package, stats equal to the
+    golden's."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.train import make_prefill_step
+    golden = json.load(open(ENCDEC_GOLDEN))
+    cfg, params, out = full_model(golden["arch"], dev)
+    b, s = ENCDEC_PREFILL
+    extra = seeded_embeds(cfg, b, dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    step = make_prefill_step(cfg, use_flash=True)
+    step(params, {"tokens": tok[:, :64], **extra})   # warm
+    fops.mha.launches = 0
+    walls = {}
+
+    def timed(name, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = fn()
+        sync(dev)
+        walls[name] = time.perf_counter() - t0
+        return res
+
+    enc = timed("encode", lambda: lm.encode(params, cfg,
+                                            extra["enc_embeds"]))
+    state = timed("prime", lambda: lm.prime_encdec(
+        params, cfg, extra["enc_embeds"],
+        lm.init_decode_state(params, cfg, b, s)))
+    logits = timed("prefill", lambda: step(params, {"tokens": tok, **extra}))
+    if fops.mha.launches != 0:
+        raise AssertionError(f"15c launched flash_attention "
+                             f"{fops.mha.launches} times; want 0")
+    xk, xv = state.extra
+    want = (cfg.n_layers, b, cfg.enc_seq, cfg.n_kv, cfg.d_head)
+    if tuple(xk.shape) != want or xk.dtype != torch.bfloat16:
+        raise AssertionError(f"15c prime_encdec: {tuple(xk.shape)} "
+                             f"{xk.dtype}, want {want} bf16")
+    for name, t in (("encode", enc), ("cross K", xk), ("cross V", xv),
+                    ("prefill logits", logits)):
+        if not np.isfinite(t.float().cpu().numpy()).all():
+            raise AssertionError(f"15c {name}: non-finite")
+    out.update(walls=walls, enc_shape=tuple(enc.shape))
+    del enc, state, xk, xv
+    out["serve"] = serve_counted("15c", cfg, params, golden["serve"], fops,
+                                 kops, dev)
+    del params
+    return out
+
+
+def report_vlm(m: dict) -> None:
+    p, sv = m["prefill"], m["serve"]
+    b, s = VLM_PREFILL
+    log(f"[vlm] 15a paligemma-3b full width: {m['n_params']:,} parameters "
+        f"({m['param_gb']:.2f} GB) initialised on the card in "
+        f"{m['init_s']:.1f} s; prefill B={b}, 256 patch positions + {s} "
+        f"tokens: " + "; ".join(
+            f"{name} {p[key]['wall_s']:.2f} s ({p[key]['tok_per_s']:,.0f} "
+            f"tok/s, peak {gb(p[key]['max_mem_gb'])})" for key, name in
+            (("flash", "flash route"),
+             ("flash_plain", "flash with mha_plain"),
+             ("plain", "dense route"))) + f"; flash launches by kernel "
+        f"{ {'wgmma': m['flash_launches']} }")
+    log(f"[vlm] 15a: the d = 256 kernel on each of the "
+        f"{p['held']['layers']} layers' q, k, v (H, Hkv, d = {m['heads']}): "
+        f"{flash_readings(p['held'])} (worst layer "
+        f"{p['held']['worst_layer']}); last-token logits finite, flash vs "
+        f"the mha_plain forward {m['gap_kernel']:.4g} x max|logit|, vs the "
+        f"dense route {m['gap_dense']:.4g} (printed)")
+    log(f"[vlm] 15a ServeEngine: {sv['stats']['completed']} requests in "
+        f"{sv['clock']} engine steps, {sv['steps']} decode steps in "
+        f"{sv['wall_s']:.2f} s ({sv['ms_per_step']:.2f} ms a step against a "
+        f"bound of {sv['bound_ms']:.2f} ms, every parameter read once; "
+        f"{sv['tok_per_s']:.1f} generated tok/s; peak {gb(sv['peak_gb'])}); "
+        f"stats equal the golden; kmeans_fit launches {sv['kmeans_fit']}; "
+        f"profiler: {sv['profile'] or 'not measured'}; {nvidia_smi()}")
+
+
+def report_hybrid(m: dict) -> None:
+    sv = m["serve"]
+    b, s = HYBRID_PREFILL
+    log(f"[hybrid] 15b zamba2-2.7b full width: {m['n_params']:,} "
+        f"parameters ({m['param_gb']:.2f} GB), {m['groups']} groups, in "
+        f"{m['init_s']:.1f} s; prefill B={b} S={s} "
+        f"{m['prefill']['wall_s']:.2f} s ({m['prefill']['tok_per_s']:,.0f} "
+        f"tok/s, the Mamba time loop; dense route, no flash launch; peak "
+        f"{gb(m['prefill']['peak_gb'])}); ServeEngine: "
+        f"{sv['stats']['completed']} requests, {sv['steps']} decode steps "
+        f"in {sv['wall_s']:.2f} s ({sv['ms_per_step']:.2f} ms a step, bound "
+        f"{sv['bound_ms']:.3f} ms; {sv['tok_per_s']:.1f} generated tok/s; "
+        f"peak {gb(sv['peak_gb'])}); stats equal the golden; kmeans_fit "
+        f"launches {sv['kmeans_fit']}; profiler: "
+        f"{sv['profile'] or 'not measured'}; {nvidia_smi()}")
+
+
+def report_encdec(m: dict) -> None:
+    sv, w = m["serve"], m["walls"]
+    b, s = ENCDEC_PREFILL
+    log(f"[encdec] 15c whisper-base whole: {m['n_params']:,} parameters "
+        f"({m['param_gb']:.3f} GB) in {m['init_s']:.1f} s; B={b}, "
+        f"{m['enc_shape'][1]} frames: encode {w['encode'] * 1e3:.1f} ms (out "
+        f"{m['enc_shape']}), prime_encdec {w['prime'] * 1e3:.1f} ms, prefill "
+        f"of S={s} decoder tokens {w['prefill'] * 1e3:.1f} ms "
+        f"({b * s / w['prefill']:,.0f} tok/s), all finite, no flash launch; "
+        f"ServeEngine (unprimed): {sv['stats']['completed']} requests, "
+        f"{sv['steps']} decode steps in {sv['wall_s']:.2f} s "
+        f"({sv['ms_per_step']:.2f} ms a step, bound {sv['bound_ms']:.4f} "
+        f"ms; peak {gb(sv['peak_gb'])}); stats equal the golden; kmeans_fit "
+        f"launches {sv['kmeans_fit']}; profiler: "
+        f"{sv['profile'] or 'not measured'}")
+
+
+def report_golden(golden: dict, g: dict, t1: float) -> None:
+    log(f"[golden] 15g {golden['arch']} full width, "
+        f"{golden['n_layers']} layers, B={golden['batch']} "
+        f"S={golden['seq']}: both prefill routes and "
+        f"{len(golden['decode'])} decode steps match the JAX logits "
+        f"(worst {g['worst_rel']:.4g} x max|logit|, bar {g['bar']:.4g}; "
+        f"argmax near ties {g['ties']}; the decode steps' sampled and "
+        f"top-8 logits, not held, as in 8g: {g['decode_values']:.4g}); "
+        f"weights onto the card {g['weights_s']:.1f} s (their numpy tree "
+        f"made during 15a-15c), {time.time() - t1:.1f} s")
+
+
+# 15a-15c by family: the run, its report, its golden
+PHASE15 = {"vlm": (run_vlm_full, report_vlm, VLM_GOLDEN),
+           "hybrid": (run_hybrid_full, report_hybrid, HYBRID_GOLDEN),
+           "encdec": (run_encdec_full, report_encdec, ENCDEC_GOLDEN)}
+
+
+def run_phase15(dev, fops, kops, families=tuple(PHASE15)) -> dict:
+    """Phase 15, the hybrid, encdec and vlm families: 15a paligemma-3b,
+    15b zamba2-2.7b, 15c whisper-base at full width, then 15g their
+    goldens (``families``: those of these to run).  A thread makes the
+    goldens' numpy parameter trees (~27 s of host work at these widths)
+    while 15a-15c run."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    t0 = time.time()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    r = {"golden": {}}
+    goldens = {fam: json.load(open(PHASE15[fam][2])) for fam in families}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        trees = {fam: pool.submit(golden_tree, goldens[fam])
+                 for fam in families}
+        for fam in families:
+            run, report, _ = PHASE15[fam]
+            r[fam] = run(dev, fops, kops)
+            report(r[fam])
+        for fam in families:
+            golden = goldens[fam]
+            t1 = time.time()
+            g = r["golden"][golden["arch"]] = check_family_golden(
+                golden, dev, trees.pop(fam).result())
+            report_golden(golden, g, t1)
     r["wall_s"] = time.time() - t0
-    log(f"[families] phase 14: {r['wall_s']:.1f} s")
+    log(f"[families] phase 15: {r['wall_s']:.1f} s")
     return r
 
 
@@ -2287,15 +2649,13 @@ def run_train_full(dev) -> dict:
             "n_params": n_params, "bound": bound}
 
 
-def check_train_golden(golden: dict, dev) -> dict:
+def check_train_golden(golden: dict, dev, tree=None) -> dict:
     """Phase 13g: qwen3-1.7b at full width with the golden's depth on
     ``convert.lm_numpy_params`` -- step 0's per-leaf gradient norms and
     the loss, grad norm and lr of three ``make_train_step`` steps held to
     the JAX package's (``train_bars``)."""
-    import dataclasses
     import torch
     from repro_torch import convert
-    from repro_torch.configs import get_arch
     from repro_torch.data import DataPipeline
     from repro_torch.models import lm
     from repro_torch.optim import init_opt_state
@@ -2303,9 +2663,9 @@ def check_train_golden(golden: dict, dev) -> dict:
     from repro_torch.train.step import to_device
     g = golden
     bars = train_bars(g)
-    cfg = dataclasses.replace(get_arch(g["arch"]), n_layers=g["n_layers"])
+    cfg = golden_config(g)
     params = convert.lm_params_from_numpy(
-        convert.lm_numpy_params(cfg, seed=g["seed"]), cfg, dev)
+        golden_tree(g) if tree is None else tree, cfg, dev)
     pipe = DataPipeline(vocab=cfg.vocab, seq_len=g["seq"],
                         global_batch=g["batch"], seed=g["data_seed"])
     worst = {"loss": 0.0, "grad": 0.0, "lr": 0.0}
@@ -2401,8 +2761,9 @@ def run_train_resume(dev, root: str) -> dict:
             "losses": [h["loss"] for h in straight["history"]]}
 
 
-def run_phase13(dev) -> dict:
-    """Phase 13, training: 13a full width, 13g the golden, 13r resume."""
+def run_phase13(dev, tree=None) -> dict:
+    """Phase 13, training: 13a full width, 13g the golden (``tree``: its
+    parameter tree if made already), 13r resume."""
     t0 = time.time()
     r = {"full": run_train_full(dev)}
     full = r["full"]
@@ -2425,7 +2786,7 @@ def run_phase13(dev) -> dict:
         f"step 1; no flash launch; {nvidia_smi()}")
     t1 = time.time()
     golden = json.load(open(TRAIN_GOLDEN))
-    r["golden"] = g = check_train_golden(golden, dev)
+    r["golden"] = g = check_train_golden(golden, dev, tree)
     log(f"[train] 13g qwen3-1.7b full width, {golden['n_layers']} layers, "
         f"B={golden['batch']} S={golden['seq']}: step 0's gradient norms "
         f"and {len(g['steps'])} steps' loss, grad norm and lr within the "
@@ -2999,7 +3360,8 @@ def main() -> int:
     if not all(os.path.exists(f) for f in (GOLDEN, SYSTEM, LM_GOLDEN,
                                            SCHED, SERVE_REPLAY,
                                            TRAIN_GOLDEN, MOE_GOLDEN,
-                                           SSM_GOLDEN)):
+                                           SSM_GOLDEN, HYBRID_GOLDEN,
+                                           ENCDEC_GOLDEN, VLM_GOLDEN)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -3139,8 +3501,8 @@ def main() -> int:
                              f"kernel and every f32 call on the CUDA-core "
                              f"one")
     log(f"[flash_attention] 3c: kernel == plain within atol 2e-5 (f32, "
-        f"CUDA-core kernel) / 2e-2 (bf16, Hopper kernel) on the 16 "
-        f"test_kernels cases (max |diff| {max(errs):.3g}) and the "
+        f"CUDA-core kernel) / 2e-2 (bf16, Hopper kernel) on the "
+        f"{len(errs)} test_kernels cases (max |diff| {max(errs):.3g}) and the "
         f"{2 * len(FLASH_EDGE)} edge cases {[c for c, _ in FLASH_EDGE]} "
         f"(max |diff| {max(edge):.3g}); launches by kernel {by_kernel}; at "
         f"one qwen3-1.7b layer B, S, H, Hkv, d = {layer} causal: "
@@ -3621,7 +3983,12 @@ def main() -> int:
         raise AssertionError(f"prediction accuracy {acc} != golden "
                              f"{acc_want['accuracy']} or not > 0.7")
 
-    # 8. the third slice's path: prefill of qwen3-1.7b at full width
+    # 8. the third slice's path: prefill of qwen3-1.7b at full width; a
+    # thread makes the numpy tree that 8g and 13g share (the same arch,
+    # depth and seed) while the card runs phase 8
+    lm_golden = json.load(open(LM_GOLDEN))
+    tree_pool = ThreadPoolExecutor(max_workers=1)
+    tree8 = tree_pool.submit(golden_tree, lm_golden)
     cfg = get_arch("qwen3-1.7b")
     t0 = time.time()
     params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
@@ -3675,15 +4042,15 @@ def main() -> int:
     log(f"[prefill] phase 8 launches by kernel: {flash.kernel_launches}")
 
     # 8g. the 2-layer full-width model held to the JAX package's logits
-    lm_golden = json.load(open(LM_GOLDEN))
     t0 = time.time()
-    g8 = check_lm_golden(lm_golden, dev)
+    g8 = check_lm_golden(lm_golden, dev, tree8.result())
     log(f"[golden] qwen3-1.7b at full width, {lm_golden['n_layers']} "
         f"layers, B={lm_golden['batch']} S={lm_golden['seq']}: both "
         f"prefill routes and {lm_golden['decode_steps']} decode steps "
         f"match the JAX logits (worst {g8['worst_rel']:.4g} x "
-        f"max|logit|, bar {LOGIT_RTOL:.4g}; argmax equal); weights "
-        f"{g8['weights_s']:.1f} s, phase {time.time() - t0:.1f} s")
+        f"max|logit|, bar {LOGIT_RTOL:.4g}; argmax equal); weights onto "
+        f"the card {g8['weights_s']:.1f} s (their numpy tree made during "
+        f"phase 8), phase {time.time() - t0:.1f} s")
 
     # 9. the server answers requests on the 28-layer model
     dense.launches = flash.launches = fit.launches = 0
@@ -3747,11 +4114,18 @@ def main() -> int:
 
     # 13. training: qwen3-1.7b train steps at full width, the training
     # golden, the Trainer's resume on the card
-    run_phase13(dev)
+    run_phase13(dev, tree8.result())
+    del tree8
+    tree_pool.shutdown()
 
     # 14. the moe and ssm families: qwen2-moe-a2.7b and rwkv6-1.6b at full
     # width (prefill, the server), their goldens, compression
     run_phase14(dev, fops, kops)
+
+    # 15. the hybrid, encdec and vlm families: paligemma-3b (its prefill on
+    # the flash kernel at d = 256), zamba2-2.7b and whisper-base at full
+    # width (prefill, the server), their goldens
+    r15 = run_phase15(dev, fops, kops)
 
     # 3b. the kernels at the shapes the paths handed them
     kernels = []
@@ -3855,6 +4229,24 @@ def main() -> int:
         {"B": b, "S": s, "H": h, "Hkv": hkv, "d": d, "dtype": "bf16"},
         peak=BF16_FLOPS))
     del q, k, v, cap_f
+    # the d = 256 instance (one consumer warpgroup, one K/V stage) at one
+    # paligemma-3b layer of 15a's prefill
+    qv, kv, vv = flash_inputs(*VLM_LAYER, torch.bfloat16, dev)
+    r256 = check_flash_path(fops, qv, kv, vv, f"paligemma layer {VLM_LAYER}")
+    log(f"[flash_attention] d = 256 kernel == plain at one paligemma-3b "
+        f"layer {VLM_LAYER}: {flash_readings(r256)}")
+    t256 = time_flash(fops, qv, kv, vv, reps=20)
+    n_bytes, n_ops = flash_bound(*VLM_LAYER)
+    b, s, h, hkv, d = VLM_LAYER
+    kernels.append(kernel_row(
+        "flash_attention_d256", "cuda",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:70",
+        r15["vlm"]["flash_launches"], r256["err"], t256["ms"],
+        t256["plain_ms"], n_bytes, n_ops, t256["library_ms"],
+        {"B": b, "S": s, "H": h, "Hkv": hkv, "d": d, "dtype": "bf16"},
+        peak=BF16_FLOPS))
+    del qv, kv, vv
     ql, kl, vl = flash_inputs(*layer, torch.bfloat16, dev)
     t4k = time_flash(fops, ql, kl, vl, reps=20)
     b4, s4 = layer[0], layer[1]

@@ -68,6 +68,19 @@ def bf16_round(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _attn_leaves(prefix: str, n: tuple, cfg: ModelConfig) -> Dict:
+    """An attention block's wq, wk, wv, wo (no qk norm) under ``prefix``,
+    stacked ``n`` (``()`` for one block)."""
+    d, hd = cfg.d_model, cfg.d_head
+    out = {}
+    for name, shape in (("wq", (d, cfg.n_heads * hd)),
+                        ("wk", (d, cfg.n_kv * hd)),
+                        ("wv", (d, cfg.n_kv * hd)),
+                        ("wo", (cfg.n_heads * hd, d))):
+        out[f"{prefix}{name}"] = (n + shape, 1 / math.sqrt(shape[0]))
+    return out
+
+
 def _dense_layout(cfg: ModelConfig) -> Dict[str, tuple]:
     """The dense family's parameter leaves as path -> (shape, fan-in scale
     or None for a norm scale of ones), in the JAX package's layout (layers
@@ -76,11 +89,7 @@ def _dense_layout(cfg: ModelConfig) -> Dict[str, tuple]:
     out = {"embed/table": ((cfg.vocab, d), 0.02), "ln_f/scale": ((d,), None),
            "layers/ln1/scale": ((n, d), None),
            "layers/ln2/scale": ((n, d), None)}
-    for name, shape in (("wq", (d, cfg.n_heads * hd)),
-                        ("wk", (d, cfg.n_kv * hd)),
-                        ("wv", (d, cfg.n_kv * hd)),
-                        ("wo", (cfg.n_heads * hd, d))):
-        out[f"layers/attn/{name}"] = ((n,) + shape, 1 / math.sqrt(shape[0]))
+    out.update(_attn_leaves("layers/attn/", (n,), cfg))
     if cfg.qk_norm:
         out["layers/attn/q_norm"] = ((n, hd), None)
         out["layers/attn/k_norm"] = ((n, hd), None)
@@ -151,13 +160,80 @@ def _ssm_layout(cfg: ModelConfig) -> Dict[str, tuple]:
     return out
 
 
+def _hybrid_layout(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The ``hybrid`` (Zamba2) family's leaves, in the JAX ``init_params``'
+    order: the table, ``ln_f``, the stacked layers (``ln1``; ``mamba_init``'s
+    weights, ``conv_w`` at scale 0.5, ``a_log`` and ``dt_bias`` zeros,
+    ``d_skip`` ones and the zero ``_shape`` leaf [n_heads, d_head, d_state,
+    d_conv]), then the one ``shared_attn`` block (``ln1``, ``ln2``, the
+    attention and its SwiGLU)."""
+    d, n, f, nh, ds = (cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.ssm_heads,
+                       cfg.d_state)
+    di, dc = 2 * d, 4                      # mamba_init's expand and d_conv
+    m = "layers/mamba/"
+    out = {"embed/table": ((cfg.vocab, d), 0.02), "ln_f/scale": ((d,), None),
+           "layers/ln1/scale": ((n, d), None)}
+    for name, shape in (("w_z", (d, di)), ("w_x", (d, di)),
+                        ("w_b", (d, ds)), ("w_c", (d, ds)),
+                        ("w_dt", (d, nh))):
+        out[m + name] = ((n,) + shape, 1 / math.sqrt(d))
+    out[m + "conv_w"] = ((n, dc, di), 0.5)
+    out[m + "a_log"] = ((n, nh), 0.0)
+    out[m + "d_skip"] = ((n, nh), None)
+    out[m + "dt_bias"] = ((n, nh), 0.0)
+    out[m + "w_out"] = ((n, di, d), 1 / math.sqrt(di))
+    out[m + "_shape"] = ((n, nh, di // nh, ds, dc), Fill(0.0, meta=True))
+    out["shared_attn/ln1/scale"] = ((d,), None)
+    out["shared_attn/ln2/scale"] = ((d,), None)
+    out.update(_attn_leaves("shared_attn/attn/", (), cfg))
+    for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                        ("w_down", (f, d))):
+        out[f"shared_attn/mlp/{name}"] = (shape, 1 / math.sqrt(shape[0]))
+    return out
+
+
+def _encdec_layout(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The ``encdec`` (whisper) family's leaves, in the JAX ``init_params``'
+    order: the table, ``ln_f`` (an RMSNorm), the stacked encoder layers
+    (LayerNorms ``ln1`` and ``ln2``, the attention, the GELU MLP with zero
+    biases), ``ln_enc``, then the stacked decoder layers (LayerNorms
+    ``ln1``, ``ln_x``, ``ln2``, ``attn``, ``xattn``, the GELU MLP)."""
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"embed/table": ((cfg.vocab, d), 0.02), "ln_f/scale": ((d,), None)}
+
+    def layer(head, n, norms, attns):
+        for ln in norms:
+            out[f"{head}/{ln}/scale"] = ((n, d), None)
+            out[f"{head}/{ln}/bias"] = ((n, d), 0.0)
+        for a in attns:
+            out.update(_attn_leaves(f"{head}/{a}/", (n,), cfg))
+        out[f"{head}/mlp/w_up"] = ((n, d, f), 1 / math.sqrt(d))
+        out[f"{head}/mlp/b_up"] = ((n, f), 0.0)
+        out[f"{head}/mlp/w_down"] = ((n, f, d), 1 / math.sqrt(f))
+        out[f"{head}/mlp/b_down"] = ((n, d), 0.0)
+
+    layer("encoder", cfg.enc_layers, ("ln1", "ln2"), ("attn",))
+    out["ln_enc/scale"] = ((d,), None)
+    out["ln_enc/bias"] = ((d,), 0.0)
+    layer("layers", cfg.n_layers, ("ln1", "ln_x", "ln2"), ("attn", "xattn"))
+    return out
+
+
 def _layout(cfg: ModelConfig) -> Dict[str, tuple]:
     """The parameter leaves of ``cfg``'s family as path -> (shape, scale):
-    a fan-in scale, None for ones, 0.0 for zeros or a ``Fill``."""
+    a fan-in scale, None for ones, 0.0 for zeros or a ``Fill``.  The
+    ``vlm`` family's leaves are the dense family's."""
     from .models import lm
     lm._ported_only(cfg)
-    return {"dense": _dense_layout, "moe": _moe_layout,
-            "ssm": _ssm_layout}[cfg.family](cfg)
+    return {"dense": _dense_layout, "moe": _moe_layout, "ssm": _ssm_layout,
+            "vlm": _dense_layout, "hybrid": _hybrid_layout,
+            "encdec": _encdec_layout}[cfg.family](cfg)
+
+
+def _stacked(path: str) -> bool:
+    """Whether a leaf of the JAX layout is stacked over layers."""
+    from .models import lm
+    return path.split("/", 1)[0] in lm.STACKED
 
 
 def _is_meta(spec: tuple) -> bool:
@@ -191,6 +267,30 @@ def lm_numpy_params(cfg: ModelConfig, seed: int = 0) -> Dict:
     return _nest(flat)
 
 
+# the frontends that both packages stub (SigLIP for vlm, whisper's conv
+# frontend for encdec): batch key, length field of the config, and the
+# standard deviation of the seeded stand-in embeddings (the token table's
+# 0.02 for patches, the sinusoid's scale for audio frames)
+FRONTEND_EMBEDS = {"vlm": ("patch_embeds", "prefix_len", 0.02),
+                   "encdec": ("enc_embeds", "enc_seq", 1.0)}
+
+
+def lm_numpy_embeds(cfg: ModelConfig, batch: int, seed: int = 0) -> Dict:
+    """Seeded stand-ins for a stubbed frontend's output, the batch entries
+    a ``vlm`` or ``encdec`` model reads besides the tokens: {key: [batch,
+    length, d_model]} as f32 normal draws from ``numpy.random.default_rng(
+    (seed, 1))`` times the key's standard deviation, rounded to bf16 (the
+    type both packages feed them in); {} for the other families."""
+    if cfg.family not in FRONTEND_EMBEDS:
+        return {}
+    key, length, std = FRONTEND_EMBEDS[cfg.family]
+    rng = np.random.default_rng((seed, 1))
+    a = rng.standard_normal((batch, getattr(cfg, length), cfg.d_model),
+                            dtype=np.float32)
+    a *= np.float32(std)
+    return {key: bf16_round(a)}
+
+
 def lm_params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda"):
     """The port's ``models.lm.LM`` on ``device`` holding the values of
     ``tree`` (the JAX package's layout, as ``lm_numpy_params`` makes it):
@@ -208,12 +308,13 @@ def lm_params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda"):
 
 def _names(cfg: ModelConfig, path: str) -> List[str]:
     """The module's parameter names that hold ``path`` of the JAX layout:
-    one a block for a stacked ``layers`` leaf."""
+    one a block for a stacked ``layers`` or ``encoder`` leaf."""
+    from .models import lm
     head, rest = path.split("/", 1)
-    if head != "layers":
+    if head not in lm.STACKED:
         return [path.replace("/", ".")]
-    return [f"layers.{i}.{rest.replace('/', '.')}"
-            for i in range(cfg.n_layers)]
+    return [f"{head}.{i}.{rest.replace('/', '.')}"
+            for i in range(lm.STACKED[head](cfg))]
 
 
 def _unstack(cfg: ModelConfig, tree: Dict):
@@ -232,7 +333,7 @@ def _unstack(cfg: ModelConfig, tree: Dict):
             a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
         names = _names(cfg, path)
         for i, name in enumerate(names):
-            yield name, (a[i] if path.startswith("layers/") else a)
+            yield name, (a[i] if _stacked(path) else a)
 
 
 def _stack(cfg: ModelConfig, get) -> Dict[str, torch.Tensor]:
@@ -244,8 +345,7 @@ def _stack(cfg: ModelConfig, get) -> Dict[str, torch.Tensor]:
             flat[path] = torch.zeros(spec[0], dtype=torch.float32)
             continue
         ts = [get(name).detach().cpu() for name in _names(cfg, path)]
-        flat[path] = (torch.stack(ts) if path.startswith("layers/")
-                      else ts[0].clone())
+        flat[path] = torch.stack(ts) if _stacked(path) else ts[0].clone()
     return flat
 
 

@@ -22,7 +22,7 @@
 // contiguous, read strided (no transposes, K and V never repeated: q head h
 // reads kv head h / (H / Hkv)).
 //
-// Which kernel takes which call (ops.route), at d in {32, 64, 128}:
+// Which kernel takes which call (ops.route), at d in {32, 64, 128, 256}:
 //   bf16 -> flash_fwd_sm90, the Hopper kernel (flash_attention_sm90 below);
 //   f32  -> flash_fwd, on the CUDA cores (flash_attention below): its bar
 //   (2e-5 against the plain version) rules out the TF32 tensor cores.
@@ -58,10 +58,18 @@
 // Softmax and the products do not overlap inside a warpgroup (each wgmma
 // batch is waited for before the softmax reads it): the two consumer
 // warpgroups overlap each other only as the scheduler interleaves them.
-// The f32 kernel: grid (ceil(Sq / 64), B * H), 256 threads as 16 x 16; the
+// At d = 256 the Hopper kernel runs one consumer warpgroup of 64 query rows
+// and a ring of one K/V stage (Q [64, 256], K and V [128, 256]: 160 KiB of
+// shared memory, where two stages would need 288 KiB); its O accumulator
+// alone is 128 registers a thread, so it takes no setmaxnreg and has 255
+// registers a thread; O += P V runs as two m64n128k16 halves.
+// The f32 kernel: grid (ceil(Sq / BQ), B * H), 256 threads as 16 x 16; the
 // Q tile, one K and one V block (in f32) and the block's p in shared memory
-// (194 KB at d = 128); thread (ty, tx) owns rows 4ty..4ty+3, scores at
-// columns tx + 16j and outputs at columns tx + 16j, products as f32 FMAs.
+// (194 KB at d = 128); thread (ty, tx) owns rows BQ/16 ty .. BQ/16 ty +
+// BQ/16 - 1, scores at columns tx + 16j and outputs at columns tx + 16j,
+// products as f32 FMAs.  BQ = 64 rows up to d = 128; at d = 256, BQ = 32
+// and one buffer holds the K block for the scores, then the V block for
+// the product (178 KB), in the same order of operations.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +80,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 128;       // the largest key block (the Pallas block_k)
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
@@ -91,15 +98,21 @@ __device__ __forceinline__ float round_to(float x) {
 
 template <int D>
 struct Smem {
+  static constexpr int kBQ = D <= 128 ? 64 : 32;   // query rows per block
+  static constexpr int kRows = kBQ / 16;           // rows per thread
+  // d = 256: K, then V, in one buffer (two would need 355 KB)
+  static constexpr bool kOneBuffer = D > 128;
   static constexpr int kQStride = D + 4;    // 2 rows of a warp: other banks
   static constexpr int kKStride = D + 1;    // 16 columns: 16 banks
+  static constexpr int kVStride = kOneBuffer ? kKStride : D;
   static constexpr int kPStride = kBK + 4;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kBQ * kQStride;
-  static constexpr int kV = kK + kBK * kKStride;
-  static constexpr int kP = kV + kBK * D;
+  static constexpr int kV = kOneBuffer ? kK : kK + kBK * kKStride;
+  static constexpr int kP = kV + kBK * kVStride;
   static constexpr int kFloats = kP + kBQ * kPStride;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(kBytes <= 232448, "shared memory");
 };
 
 template <typename T, int D>
@@ -109,6 +122,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           int hkv, int causal, float scale) {
   using S = Smem<D>;
   constexpr int kCols = D / 16;
+  constexpr int kBQ = S::kBQ;
+  constexpr int kR = S::kRows;
   extern __shared__ float smem[];
   float* qs = smem + S::kQ;
   float* ks = smem + S::kK;
@@ -132,9 +147,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
                  : 0.0f;
   }
 
-  float m[4], l[4], acc[4][kCols];
+  float m[kR], l[kR], acc[kR][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kR; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
@@ -146,42 +161,43 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(sk, last_row + 1) : sk;
   for (int c0 = 0; c0 < kend; c0 += bk) {
     __syncthreads();   // the previous block's K, V and p are consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, j = i % D;
-      float kx = 0.0f, vx = 0.0f;
-      if (c < bk) {
-        const long long g =
-            ((static_cast<long long>(b) * sk + c0 + c) * hkv + kvh) * D + j;
-        kx = to_f32(k[g]);
-        vx = to_f32(v[g]);
+    // the block's K (and V, unless they share one buffer)
+    auto load = [&](const T* __restrict__ src, float* dst, int stride) {
+      for (int i = tid; i < kBK * D; i += kThreads) {
+        const int c = i / D, j = i % D;
+        dst[c * stride + j] =
+            c < bk ? to_f32(src[((static_cast<long long>(b) * sk + c0 + c) *
+                                     hkv + kvh) * D + j])
+                   : 0.0f;
       }
-      ks[c * S::kKStride + j] = kx;
-      vs[c * D + j] = vx;
-    }
+    };
+    load(k, ks, S::kKStride);
+    if constexpr (!S::kOneBuffer) load(v, vs, S::kVStride);
     __syncthreads();
 
-    float s[4][8];
+    float s[kR][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
     for (int t = 0; t < D; ++t) {
-      float qv[4], kv[8];
+      float qv[kR], kv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * S::kQStride + t];
+      for (int i = 0; i < kR; ++i)
+        qv[i] = qs[(ty * kR + i) * S::kQStride + t];
 #pragma unroll
       for (int j = 0; j < 8; ++j) kv[j] = ks[(tx + 16 * j) * S::kKStride + t];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
     }
 
-    float alpha[4];
+    float alpha[kR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int row = q0 + ty * kR + i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -204,7 +220,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        ps[(ty * 4 + i) * S::kPStride + tx + 16 * j] = round_to<T>(p);
+        ps[(ty * kR + i) * S::kPStride + tx + 16 * j] = round_to<T>(p);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -214,34 +230,40 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new;
     }
     __syncthreads();
+    if constexpr (S::kOneBuffer) {
+      load(v, vs, S::kVStride);   // the scores have read K
+      __syncthreads();
+    }
 
-    float pv[4][kCols];
+    float pv[kR][kCols];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) pv[i][j] = 0.0f;
     for (int c = 0; c < bk; ++c) {
-      float pr[4], vv[kCols];
+      float pr[kR], vv[kCols];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty * 4 + i) * S::kPStride + c];
+      for (int i = 0; i < kR; ++i)
+        pr[i] = ps[(ty * kR + i) * S::kPStride + c];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) vv[j] = vs[c * D + tx + 16 * j];
+      for (int j = 0; j < kCols; ++j)
+        vv[j] = vs[c * S::kVStride + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
           pv[i][j] = __fmaf_rn(pr[i], vv[j], pv[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
         acc[i][j] = acc[i][j] * alpha[i] + pv[i][j];
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-20f);
     T* out = o + ((static_cast<long long>(b) * sq + row) * h + hh) * D;
@@ -260,7 +282,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
+  const dim3 grid((sq + Smem<D>::kBQ - 1) / Smem<D>::kBQ, b * h);
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, hkv, causal,
@@ -279,6 +301,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
       return launch<T, 64>(q, k, v, o, b, sq, sk, h, hkv, causal, scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, b, sq, sk, h, hkv, causal, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, b, sq, sk, h, hkv, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -287,16 +311,12 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The Hopper kernel (bf16, d in {32, 64, 128}): wgmma for both products, a
-// TMA-fed ring of K/V stages and a producer warpgroup.
+// The Hopper kernel (bf16, d in {32, 64, 128, 256}): wgmma for both
+// products, a TMA-fed ring of K/V stages and a producer warpgroup.
 // ---------------------------------------------------------------------------
 namespace sm90 {
 
-constexpr int kBM = 128;             // query rows per block (two warpgroups)
 constexpr int kBN = 128;             // keys per block (the Pallas block_k)
-constexpr int kStages = 2;           // K/V ring depth
-constexpr int kThreads = 384;        // two consumer warpgroups, one producer
-constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 // rows whose l may stay under 1 / kTau get p rounded exactly (see below)
@@ -304,19 +324,29 @@ constexpr float kTau = 1.0f / 1024.0f;
 constexpr int kNoEncoder = -1;       // cuTensorMapEncodeTiled not found
 constexpr int kBadTensorMap = -2;    // the driver refused a tensor map
 
-// Shared memory, each tile [128 rows, D] in kChunks column chunks of kSw
-// bytes a row, as TMA writes them with the kSw-byte swizzle (the form
-// wgmma reads): Q, then the K stages, then the V stages, then the
-// barriers.  Tiles are 1024-byte aligned (the swizzle's repeat).
+// The block's shape and shared memory at head size D.  Up to d = 128: two
+// consumer warpgroups (128 query rows) and a ring of two K/V stages; at
+// d = 256 one consumer warpgroup (64 rows) and one stage, within the 227
+// KB a block may take.  Each tile [rows, D] is kChunks column chunks of
+// kSw bytes a row, as TMA writes them with the kSw-byte swizzle (the form
+// wgmma reads): Q [kBM, D], then the K stages, then the V stages [128, D],
+// then the barriers.  Tiles are 1024-byte aligned (the swizzle's repeat).
 template <int D>
 struct Layout {
+  static constexpr int kWGs = D <= 128 ? 2 : 1;     // consumer warpgroups
+  static constexpr int kStages = D <= 128 ? 2 : 1;  // K/V ring depth
+  static constexpr int kBM = 64 * kWGs;             // query rows per block
+  static constexpr int kThreads = 128 * (kWGs + 1); // and one producer
+  static constexpr int kConsumerWarps = 4 * kWGs;
   static constexpr int kSw = D * 2 < 128 ? D * 2 : 128;   // bytes
   static constexpr int kBoxCols = kSw / 2;                 // elements
   static constexpr int kChunks = D / kBoxCols;
-  static constexpr int kChunkBytes = kBN * kSw;
+  static constexpr int kChunkBytes = kBN * kSw;            // K, V
+  static constexpr int kQChunkBytes = kBM * kSw;
   static constexpr int kTile = kBN * D * 2;
+  static constexpr int kQTile = kBM * D * 2;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
+  static constexpr int kK = kQ + kQTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]
@@ -508,14 +538,15 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The 16-byte unit u of column chunk c of row `row` of a tile, where TMA's
-// swizzle put it (the unit index XOR the row's position in its repeat).
+// The 16-byte unit u of column chunk c of row `row` of a tile whose
+// chunks are `chunk` bytes apart, where TMA's swizzle put it (the unit
+// index XOR the row's position in its repeat).
 template <int D>
-__device__ __forceinline__ uint32_t unit_addr(uint32_t tile, int row, int c,
-                                              int u) {
+__device__ __forceinline__ uint32_t unit_addr(uint32_t tile, int chunk,
+                                              int row, int c, int u) {
   using L = Layout<D>;
   const int sw = L::kSw == 128 ? (row & 7) : ((row >> 1) & 3);
-  return tile + c * L::kChunkBytes + row * L::kSw + ((u ^ sw) << 4);
+  return tile + c * chunk + row * L::kSw + ((u ^ sw) << 4);
 }
 
 __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
@@ -534,21 +565,21 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
-// Row a of tile ta dotted with row b of tile tb in f32 as one chain of
-// fused multiply-adds over d = 0 .. D-1, the order of a plain f32 matrix
-// product; a row dotted with itself over one tile gives its squared norm
-// in that order.
+// Row a of tile ta dotted with row b of tile tb (chunks ca and cb bytes
+// apart) in f32 as one chain of fused multiply-adds over d = 0 .. D-1, the
+// order of a plain f32 matrix product; a row dotted with itself over one
+// tile gives its squared norm in that order.
 template <int D>
-__device__ __forceinline__ float dot_chain(uint32_t ta, int a, uint32_t tb,
-                                           int b) {
+__device__ __forceinline__ float dot_chain(uint32_t ta, int ca, int a,
+                                           uint32_t tb, int cb, int b) {
   using L = Layout<D>;
   float acc = 0.0f;
 #pragma unroll
   for (int c = 0; c < L::kChunks; ++c) {
 #pragma unroll
     for (int u = 0; u < L::kSw / 16; ++u) {
-      const uint4 x = ld_shared16(unit_addr<D>(ta, a, c, u));
-      const uint4 y = ld_shared16(unit_addr<D>(tb, b, c, u));
+      const uint4 x = ld_shared16(unit_addr<D>(ta, ca, a, c, u));
+      const uint4 y = ld_shared16(unit_addr<D>(tb, cb, b, c, u));
       const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
       const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
@@ -561,15 +592,15 @@ __device__ __forceinline__ float dot_chain(uint32_t ta, int a, uint32_t tb,
   return acc;
 }
 
-// Grid (B * H, ceil(Sq / 128)), 384 threads.  Threads 256..383 are the
-// producer: one thread loads the Q tile once and then each key block's K
-// and V into the ring, waiting for a stage to be released before it
-// refills it.  Threads 0..255 are two consumer warpgroups of 64 query rows
+// Grid (B * H, ceil(Sq / kBM)), kThreads threads.  The last warpgroup is
+// the producer: one thread loads the Q tile once and then each key block's
+// K and V into the ring, waiting for a stage to be released before it
+// refills it.  The others are kWGs consumer warpgroups of 64 query rows
 // each; each key block they run S = Q K^T (wgmma, both operands in shared
 // memory), the online softmax on S's registers, and O += P V (wgmma, P from
 // registers, V read MN-major), then release the stage.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
@@ -577,8 +608,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const float* __restrict__ kmax, int sq, int sk, int h,
                int hkv, int causal, float scale, float bound) {
   using L = Layout<D>;
+  constexpr int kStages = L::kStages;
+  constexpr int kBM = L::kBM;
   constexpr int kSteps = D / 16;       // k16 steps of S = Q K^T
   constexpr int kPSteps = kBN / 16;    // k16 steps of O += P V
+  constexpr int kPVN = D < 128 ? D : 128;   // columns of O a PV wgmma
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_tile = base + L::kQ;
@@ -604,22 +638,26 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k(s), 1);
       mbar_init(bar_v(s), 1);
-      mbar_init(bar_empty(s), kConsumerWarps);
+      mbar_init(bar_empty(s), L::kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // producer warpgroup: registers go to the consumers; one thread issues
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(bar_q, L::kTile);
+  if (wg == L::kWGs) {
+    // producer warpgroup: registers go to the consumers (two of them; one
+    // alone has 255 a thread without); one thread issues
+    if constexpr (L::kWGs == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+    }
+    if (threadIdx.x == L::kWGs * 128) {
+      mbar_expect_tx(bar_q, L::kQTile);
 #pragma unroll
       for (int c = 0; c < L::kChunks; ++c)
-        tma_load(q_tile + c * L::kChunkBytes, &tm_q, c * L::kBoxCols, hh, q0,
-                 b, bar_q);
+        tma_load(q_tile + c * L::kQChunkBytes, &tm_q, c * L::kBoxCols, hh,
+                 q0, b, bar_q);
       for (int i = 0; i < n_blocks; ++i) {
         const int st = i % kStages;
         mbar_wait(bar_empty(st), ((i / kStages) & 1) ^ 1);
@@ -638,7 +676,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if constexpr (L::kWGs == 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+  }
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
   // this thread's rows of the accumulators: r_lo and r_lo + 8 (tile rows
@@ -667,9 +708,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   // x - m and of expf): p's low 16 bits lie in [0x8000 - w, 0x8000 + w]
   // iff (bits << 16) + ofs <= lim, unsigned.
   const float kq = bound * kmax[b * hkv + kvh];
-  const float e_lo = kq * sqrtf(dot_chain<D>(q_tile, t_lo, q_tile, t_lo));
-  const float e_hi =
-      kq * sqrtf(dot_chain<D>(q_tile, t_lo + 8, q_tile, t_lo + 8));
+  constexpr int kQC = L::kQChunkBytes, kKC = L::kChunkBytes;
+  const float e_lo =
+      kq * sqrtf(dot_chain<D>(q_tile, kQC, t_lo, q_tile, kQC, t_lo));
+  const float e_hi = kq * sqrtf(dot_chain<D>(q_tile, kQC, t_lo + 8, q_tile,
+                                             kQC, t_lo + 8));
   const uint32_t w_lo =
       static_cast<uint32_t>(fminf(e_lo * 16777216.0f + 16.0f, 32767.0f));
   const uint32_t w_hi =
@@ -691,10 +734,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
-      const uint32_t off = (kk * 16 / L::kBoxCols) * L::kChunkBytes +
-                           (kk * 16 % L::kBoxCols) * 2;
-      wgmma_ss_n128(s, desc(q_rows + off, 16, 8 * L::kSw, L::kDescLayout),
-                    desc(k_tile(st) + off, 16, 8 * L::kSw, L::kDescLayout),
+      const uint32_t col = (kk * 16 % L::kBoxCols) * 2;
+      const uint32_t chunk = kk * 16 / L::kBoxCols;
+      wgmma_ss_n128(s,
+                    desc(q_rows + chunk * kQC + col, 16, 8 * L::kSw,
+                         L::kDescLayout),
+                    desc(k_tile(st) + chunk * kKC + col, 16, 8 * L::kSw,
+                         L::kDescLayout),
                     kk > 0);
     }
     wgmma_commit();
@@ -758,9 +804,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       float ex_lo = -INFINITY, ex_hi = -INFINITY;
       for (; todo != 0; todo &= todo - 1) {
         const int idx = __ffsll(static_cast<long long>(todo)) - 1;
-        const float x =
-            dot_chain<D>(q_tile, row_of(idx), k_tile(st), col_of(idx)) *
-            scale;
+        const float x = dot_chain<D>(q_tile, kQC, row_of(idx), k_tile(st),
+                                     kKC, col_of(idx)) *
+                        scale;
         if ((idx & 3) >= 2) {
           ex_hi = fmaxf(ex_hi, x);
         } else {
@@ -831,7 +877,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     };
     for (; redo != 0; redo &= redo - 1) {
       const int idx = __ffsll(static_cast<long long>(redo)) - 1;
-      patch(idx, dot_chain<D>(q_tile, row_of(idx), k_tile(st), col_of(idx)) *
+      patch(idx, dot_chain<D>(q_tile, kQC, row_of(idx), k_tile(st), kKC,
+                              col_of(idx)) *
                      scale);
     }
     l_lo = l_lo * alpha_lo + quad_sum(sum_lo);
@@ -846,16 +893,21 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       acc[4 * j + 3] *= alpha_hi;
     }
 
-    // O += P V: V [128 keys, D] read MN-major (D contiguous)
+    // O += P V: V [128 keys, D] read MN-major (D contiguous), in wgmma's
+    // of kPVN columns of O (d = 256: two halves, each two column chunks)
     mbar_wait(bar_v(st), phase);
     fence_regs<D / 2>(acc);
     fence_regs<kBN / 4>(pf);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kPSteps; ++kk)
-      wgmma_rs<D>(acc, pf + 4 * kk,
-                  desc(v_tile(st) + kk * 16 * L::kSw, L::kChunkBytes,
-                       8 * L::kSw, L::kDescLayout));
+    for (int kk = 0; kk < kPSteps; ++kk) {
+#pragma unroll
+      for (int n = 0; n < D / kPVN; ++n)
+        wgmma_rs<kPVN>(acc + n * (kPVN / 2), pf + 4 * kk,
+                       desc(v_tile(st) + n * (kPVN / L::kBoxCols) * kKC +
+                                kk * 16 * L::kSw,
+                            kKC, 8 * L::kSw, L::kDescLayout));
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<D / 2>(acc);
@@ -909,11 +961,11 @@ EncodeTiled encoder() {
 }
 
 // [batch, rows, heads, D] bf16, contiguous, as a 4-d map (D, heads, rows,
-// batch) with [128 rows, kBoxCols] boxes: rows past the end of a sequence
+// batch) with [box_rows, kBoxCols] boxes: rows past the end of a sequence
 // read as zeros, never as the next batch row's.
 template <int D>
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int heads,
-              int rows, int batch) {
+              int rows, int batch, int box_rows) {
   using L = Layout<D>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
@@ -923,7 +975,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int heads,
   const cuuint64_t strides[3] = {row_bytes, row_bytes * heads,
                                  row_bytes * heads * rows};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::kBoxCols), 1,
-                             static_cast<cuuint32_t>(kBN), 1};
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -940,17 +992,18 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kNoEncoder;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map<D>(enc, &tm_q, q, h, sq, b) ||
-      !make_map<D>(enc, &tm_k, k, hkv, sk, b) ||
-      !make_map<D>(enc, &tm_v, v, hkv, sk, b)) {
+  using L = Layout<D>;
+  if (!make_map<D>(enc, &tm_q, q, h, sq, b, L::kBM) ||
+      !make_map<D>(enc, &tm_k, k, hkv, sk, b, kBN) ||
+      !make_map<D>(enc, &tm_v, v, hkv, sk, b, kBN)) {
     return kBadTensorMap;
   }
-  const int smem = Layout<D>::kBytes;
+  const int smem = L::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(b * h, (sq + kBM - 1) / kBM);
-  flash_fwd_sm90<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(b * h, (sq + L::kBM - 1) / L::kBM);
+  flash_fwd_sm90<D><<<grid, L::kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), kmax, sq, sk, h,
       hkv, causal, scale, bound);
   return static_cast<int>(cudaGetLastError());
@@ -959,8 +1012,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace sm90
 
 // q [b, sq, h, d], k and v [b, sk, hkv, d], o [b, sq, h, d], f32,
-// contiguous on the device; d in {32, 64, 128}, h a multiple of hkv, sk a
-// multiple of min(128, sk); scale = float32(d ** -0.5).  Launches the
+// contiguous on the device; d in {32, 64, 128, 256}, h a multiple of hkv,
+// sk a multiple of min(128, sk); scale = float32(d ** -0.5).  Launches the
 // CUDA-core kernel on `stream` and returns cudaGetLastError() (0 on
 // success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -971,8 +1024,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 }
 
 // q [b, sq, h, d], k and v [b, sk, hkv, d], o [b, sq, h, d], bf16,
-// contiguous and 16-byte aligned on the device; d in {32, 64, 128}, h a
-// multiple of hkv, sk a multiple of min(128, sk); scale = float32(d **
+// contiguous and 16-byte aligned on the device; d in {32, 64, 128, 256}, h
+// a multiple of hkv, sk a multiple of min(128, sk); scale = float32(d **
 // -0.5).  kmax [b, hkv] (f32, on the device) bounds the norm of every key
 // row of each kv head; bound x |q| x kmax bounds how far a scaled score
 // from the tensor cores may lie from the f32 chain's.
@@ -996,6 +1049,9 @@ extern "C" int flash_attention_sm90(const void* q, const void* k,
     case 128:
       return sm90::launch<128>(q, k, v, o, km, b, sq, sk, h, hkv, causal,
                                scale, bound, s);
+    case 256:
+      return sm90::launch<256>(q, k, v, o, km, b, sq, sk, h, hkv, causal,
+                               scale, bound, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1011,6 +1067,8 @@ extern "C" int flash_attention_sm90_smem(int d) {
       return sm90::Layout<64>::kBytes;
     case 128:
       return sm90::Layout<128>::kBytes;
+    case 256:
+      return sm90::Layout<256>::kBytes;
     default:
       return 0;
   }

@@ -15,7 +15,8 @@ _ENTRY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
 # every score s = q . k: the Hopper kernel recomputes by the chain the few
 # scores near a bf16 rounding midpoint of p (or near the running max) in
 # rows where one rounding of p can move an output.  The largest ratio
-# measured on the card is about 4 (tools/flash_probe.py; PERF.md).
+# measured on the card is about 4 up to d = 128 and 4.68 at d = 256 (an
+# attention sink; tools/flash_probe.py; PERF.md).
 BOUND_ULPS = 16.0
 # the Hopper kernel's own refusals, besides cudaError codes
 _REFUSALS = {-1: "the driver has no cuTensorMapEncodeTiled",

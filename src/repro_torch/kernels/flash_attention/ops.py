@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 BLOCK = 128                       # the Pallas kernel's block_q and block_k
-HEAD_DIMS = (32, 64, 128)         # the kernel's instantiations
+HEAD_DIMS = (32, 64, 128, 256)    # the kernels' instantiations
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 KERNELS = ("wgmma", "simt")       # the Hopper kernel, the CUDA-core one
@@ -36,8 +36,8 @@ KERNELS = ("wgmma", "simt")       # the Hopper kernel, the CUDA-core one
 def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` for what the kernel does not take: the shapes
     the JAX kernel's assert refuses (``Sq % min(128, Sq)``, ``Sk % min(128,
-    Sk)``), a head size other than 32, 64 or 128, mismatched shapes, types
-    or devices."""
+    Sk)``), a head size not in ``HEAD_DIMS``, mismatched shapes, types or
+    devices."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"mha: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")

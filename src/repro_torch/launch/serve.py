@@ -5,9 +5,11 @@
         --requests 12 [--no-hydra] [--device cpu]
 
 As the JAX launcher, it serves the arch's reduced config with weights from
-seed 0 and prints the engine's stats; every ported family serves (dense,
-moe: ``--arch qwen2-moe-a2.7b`` or ``mixtral-8x22b``, ssm: ``--arch
-rwkv6-1.6b``).  The device defaults to the card.
+seed 0 and prints the engine's stats; every family serves (dense, moe:
+``--arch qwen2-moe-a2.7b`` or ``mixtral-8x22b``, ssm: ``--arch
+rwkv6-1.6b``, hybrid: ``--arch zamba2-2.7b``, encdec: ``--arch
+whisper-base``, its cross K/V unprimed as in the JAX engine, vlm: ``--arch
+paligemma-3b``, decoding tokens only).  The device defaults to the card.
 """
 import argparse
 

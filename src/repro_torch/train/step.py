@@ -18,7 +18,10 @@ from ..optim import adamw_update, clip_by_global_norm, lr_schedule
 
 
 def to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays or tensors as tensors on ``dev``."""
+    """A batch of numpy arrays or tensors as tensors on ``dev``: the tokens
+    and labels, and the frontend embeddings of the encdec and vlm families
+    (``enc_embeds``, ``patch_embeds``; pass them as bf16 tensors, the type
+    the JAX package's ``input_specs`` gives them)."""
     return {k: (v.to(dev) if isinstance(v, torch.Tensor)
                 else torch.as_tensor(np.asarray(v), device=dev))
             for k, v in batch.items()}
@@ -60,7 +63,9 @@ def make_train_step(cfg: ModelConfig, *, remat: bool = True,
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False):
-    """(params, batch) -> last-token f32 logits [B, 1, vocab]."""
+    """(params, batch) -> last-token f32 logits [B, 1, vocab].  The batch
+    holds ``tokens`` and, for encdec and vlm, ``enc_embeds`` or
+    ``patch_embeds`` (``lm.hidden``)."""
     def prefill_step(params, batch):
         with torch.inference_mode():
             return lm.forward(params, cfg, batch, use_flash=use_flash,

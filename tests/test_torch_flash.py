@@ -16,7 +16,8 @@ from test_torch_sim import torch_one_thread  # noqa: F401
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CASES = [(1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 384, 8, 1, 128),
-         (2, 128, 4, 4, 32)]
+         (2, 128, 4, 4, 32),
+         (1, 256, 8, 1, 256)]     # paligemma-3b's heads: d = 256, GQA 8
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 

@@ -161,14 +161,19 @@ def test_port_matches_lm_golden_on_the_cpu():
 
 
 FAMILY_GOLDEN_FILES = {"moe_golden": "qwen2_moe_a2_7b_w1_serve.json",
-                       "ssm_golden": "rwkv6_1_6b_w2_serve.json"}
+                       "ssm_golden": "rwkv6_1_6b_w2_serve.json",
+                       "hybrid_golden": "zamba2_2_7b_w2_serve.json",
+                       "encdec_golden": "whisper_base_serve.json",
+                       "vlm_golden": "paligemma_3b_w1_serve.json"}
 
 
 @pytest.mark.parametrize("mode", sorted(FAMILY_GOLDEN_FILES))
 def test_family_golden_file_is_the_reference(mode, tmp_path):
-    """The moe and ssm serving goldens are what the JAX package computes
-    (``FAMILY_GOLDENS`` of the reference child), with its own route gaps;
-    chip_smoke.py phase 14g takes its bar from them."""
+    """The family serving goldens (moe, ssm; hybrid, encdec, vlm) are what
+    the JAX package computes (``FAMILY_GOLDENS`` of the reference child),
+    with its own route gaps and, for encdec and vlm, the digest of the
+    seeded frontend embeddings; chip_smoke.py phases 14g and 15g take
+    their bar from them."""
     from test_torch_models import LOGIT_RTOL
     from test_torch_sim import FAMILY_GOLDENS
     fresh = _fresh(tmp_path, mode)
@@ -187,13 +192,15 @@ def test_family_golden_file_is_the_reference(mode, tmp_path):
         committed["serve"]["requests"])
     assert _chip_smoke().family_bar(committed) == max(
         2 * committed["ref_gap"], LOGIT_RTOL)
+    assert ("embeds_digest" in committed) == (
+        spec["arch"] in ("whisper-base", "paligemma-3b"))
 
 
 @pytest.mark.usefixtures("torch_one_thread")
 @pytest.mark.parametrize("mode", sorted(FAMILY_GOLDEN_FILES))
 def test_port_matches_family_golden_on_the_cpu(mode):
-    """chip_smoke.py's phase 14g check on the CPU (the full-width model
-    with the golden's depth: both prefill routes and the decode steps
+    """chip_smoke.py's phase 14g and 15g check on the CPU (the full-width
+    model with the golden's depth: both prefill routes and the decode steps
     against the JAX logits), and the engine's stats on the reduced arch
     (they depend on scheduling only)."""
     from repro_torch.configs import get_arch

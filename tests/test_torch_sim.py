@@ -80,10 +80,14 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 the committed file with ``PYTHONPATH=src JAX_PLATFORMS=cpu
                 python tests/test_torch_sim.py train_golden
                 src/repro_torch/golden/qwen3_1_7b_w2_train.json``.
-* ``moe_golden`` / ``ssm_golden`` -- qwen2-moe-a2.7b at full width with 1
-                layer and rwkv6-1.6b at full width with 2 layers
+* ``moe_golden`` / ``ssm_golden`` / ``hybrid_golden`` / ``encdec_golden`` /
+                ``vlm_golden`` -- qwen2-moe-a2.7b at full width with 1
+                layer, rwkv6-1.6b at full width with 2 layers, zamba2-2.7b
+                with 2, whisper-base whole, paligemma-3b with 1
                 (``FAMILY_GOLDENS``) on ``convert.lm_numpy_params(cfg,
-                seed=0)``: last-token logits of both prefill routes at B=2,
+                seed=0)`` and, for whisper and paligemma, the frontends'
+                stand-ins ``convert.lm_numpy_embeds``: last-token logits of
+                both prefill routes at B=2,
                 S=256 and 8 decode steps (each with its top 8), the JAX
                 package's own gaps between its routes (``ref_gap``: flash
                 versus plain attention; for moe also the sorted versus
@@ -93,7 +97,10 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
                 14g holds the card to.  Regenerate the committed files with
                 ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_sim.py
                 moe_golden src/repro_torch/golden/qwen2_moe_a2_7b_w1_serve.json``
-                and ``... ssm_golden src/repro_torch/golden/rwkv6_1_6b_w2_serve.json``.
+                and ``... ssm_golden src/repro_torch/golden/rwkv6_1_6b_w2_serve.json``
+                (``hybrid_golden zamba2_2_7b_w2_serve.json``,
+                ``encdec_golden whisper_base_serve.json``, ``vlm_golden
+                paligemma_3b_w1_serve.json``, in the same folder).
 """
 import dataclasses
 import json
@@ -196,6 +203,20 @@ FAMILY_GOLDENS = {
                        seq=256, decode_steps=8, decode_s_max=16,
                        n_sampled=64),
     "ssm_golden": dict(arch="rwkv6-1.6b", n_layers=2, seed=0, batch=2,
+                       seq=256, decode_steps=8, decode_s_max=16,
+                       n_sampled=64),
+    # the hybrid, encdec and vlm goldens: zamba2-2.7b with 2 layers (one
+    # group) and the shared block, the whole whisper-base (1500 frames,
+    # cross K/V primed before the decode steps), paligemma-3b with 1 layer
+    # over 256 patch positions and 256 tokens (its flash route through the
+    # Pallas kernel at d = 256)
+    "hybrid_golden": dict(arch="zamba2-2.7b", n_layers=2, seed=0, batch=2,
+                          seq=256, decode_steps=8, decode_s_max=16,
+                          n_sampled=64),
+    "encdec_golden": dict(arch="whisper-base", n_layers=6, seed=0, batch=2,
+                          seq=256, decode_steps=8, decode_s_max=16,
+                          n_sampled=64),
+    "vlm_golden": dict(arch="paligemma-3b", n_layers=1, seed=0, batch=2,
                        seq=256, decode_steps=8, decode_s_max=16,
                        n_sampled=64)}
 SERVE_RUN = dict(slots=4, s_max=256, max_steps=4000, token_budget=4096,
@@ -849,24 +870,29 @@ def _family_golden_child(mode: str, out: str) -> None:
     from repro.configs import get_arch
     from repro import serve
     from repro.models import lm, moe
-    from repro_torch.convert import lm_numpy_params
+    from repro_torch.convert import lm_numpy_embeds, lm_numpy_params
     from repro_torch.configs import get_arch as port_arch
     spec = FAMILY_GOLDENS[mode]
     arch, n = spec["arch"], spec["n_layers"]
     cfg = dc.replace(get_arch(arch), n_layers=n)
-    params = _jax_params(cfg, lm_numpy_params(
-        dc.replace(port_arch(arch), n_layers=n), seed=spec["seed"]))
+    tcfg = dc.replace(port_arch(arch), n_layers=n)
+    params = _jax_params(cfg, lm_numpy_params(tcfg, seed=spec["seed"]))
     tokens, sample = family_golden_inputs(spec, cfg.vocab)
+    embeds = lm_numpy_embeds(tcfg, spec["batch"], spec["seed"])
+    extras = {k: jnp.asarray(v, jnp.bfloat16) for k, v in embeds.items()}
 
     def prefill(flash):
-        fn = jax.jit(lambda p, t: lm.forward(p, cfg, {"tokens": t},
-                                             use_flash=flash,
-                                             last_only=True))
-        return np.asarray(fn(params, jnp.asarray(tokens)))[:, 0]
+        fn = jax.jit(lambda p, t, e: lm.forward(p, cfg, {"tokens": t, **e},
+                                                use_flash=flash,
+                                                last_only=True))
+        return np.asarray(fn(params, jnp.asarray(tokens), extras))[:, 0]
 
     def decode_logits():
         state = lm.init_decode_state(params, cfg, spec["batch"],
                                      spec["decode_s_max"])
+        if cfg.family == "encdec":
+            state = jax.jit(lambda p, e, s: lm.prime_encdec(p, cfg, e, s))(
+                params, extras["enc_embeds"], state)
         step = jax.jit(lambda p, s, t: lm.decode_step(p, cfg, s, t))
         out = []
         for t in range(spec["decode_steps"]):
@@ -913,6 +939,11 @@ def _family_golden_child(mode: str, out: str) -> None:
     sched = engine_cases(serve)["hydra"]()
     _, stats = _jax_engine(small, sparams, sched)
     turns, gaps_s = session_features()
+    if embeds:
+        # what chip_smoke.py checks its own seeded embeddings against
+        doc["embeds_digest"] = {k: [float(v.astype(np.float64).sum()),
+                                    float(np.abs(v).astype(np.float64).sum())]
+                                for k, v in embeds.items()}
     doc.update({
         **spec, "sample_idx": sample.tolist(), "ref_gap": gaps["attention"],
         "route_gaps": gaps,

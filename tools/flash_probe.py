@@ -14,13 +14,14 @@ its first key block and stops.  Then it prints
 
 * the calibration of ``kernel.BOUND_ULPS``: the largest |s (tensor cores) -
   s (f32 matrix product)| / (2^-24 |q| |k|) over 256 random [128, 128]
-  score tiles at d = 128, 64 and 32, for normal inputs, a shared direction
-  in q and eight keys (an attention sink), and inputs 8x larger, and the
-  share of scores that differ at all;
+  score tiles at each head size of ``HEAD_DIMS``, for normal inputs, a
+  shared direction in q and eight keys (an attention sink), and inputs 8x
+  larger, and the share of scores that differ at all;
 * for both kernels, the per-element hold of ``chip_smoke.py`` (the atol
   needed beside 2^-7 x |plain|; the bar is 2^-12) at one qwen3-1.7b layer
-  (B=1, S=4096, H=16, Hkv=8, d=128), the same shape with a sink, and the
-  prefill path's shape (S=32768);
+  (B=1, S=4096, H=16, Hkv=8, d=128), the same shape with a sink, the
+  prefill path's shape (S=32768), and one paligemma-3b layer at d = 256
+  (B=1, S=4096, H=8, Hkv=1);
 * their times, in turns (unrepaired, shipped, shipped, unrepaired), beside
   ``scaled_dot_product_attention``'s, with the card's name and power limit.
 
@@ -49,7 +50,7 @@ _SCORES = """
                   static_cast<long long>(blockIdx.x) * kBN * kBN;
       for (int j = 0; j < kBN / 8; ++j)
         for (int e = 0; e < 4; ++e)
-          so[(t_lo + 8 * (e >> 1)) * kBN + 8 * j + c_lane + (e & 1)] =
+          so[(q0 + t_lo + 8 * (e >> 1)) * kBN + 8 * j + c_lane + (e & 1)] =
               s[4 * j + e];
       return;
     }
@@ -165,6 +166,8 @@ def main() -> int:
         rng.normal(size=(1, 4096, 8, 128)))
     shapes["path"] = cs.flash_inputs(1, 32768, 16, 8, 128, torch.bfloat16,
                                      dev)
+    shapes["paligemma layer"] = cs.flash_inputs(*cs.VLM_LAYER,
+                                                torch.bfloat16, dev)
     for key, x in shapes.items():
         want = fops.mha_plain(*x, causal=True)
         for name in ("shipped", "unrepaired"):
