@@ -101,7 +101,18 @@ port's two paths at full size, each with the kernels' launch counts set to
   qwen2_moe_a2_7b_w1_serve.json``, ``rwkv6_1_6b_w2_serve.json``); 14c
   ``optim.compress``: ``quantize`` bitwise its CPU result and
   ``quantized_psum_tree`` over an NCCL world of one on qwen3-1.7b's
-  full-width leaf shapes within 0.5 x scale per element.
+  full-width leaf shapes within 0.5 x scale per element;
+* phase 16, the sharding layer: 16a ``python -m
+  repro_torch.launch.dryrun`` on qwen3-1.7b ``train_4k`` at the (16, 16)
+  mesh and ``decode_32k`` at (2, 16, 16), each in a child process on a fake
+  process group on the host (every record ``ok``; its dominant roofline
+  term on H100 constants, per-card peak, collective bytes, fallbacks);
+  16b qwen3-1.7b at full width on ``make_host_mesh()`` (NCCL, a world of
+  one): saved with ``CheckpointManager``, restored with ``shardings=`` from
+  ``rules.param_specs`` as DTensor parameters, a prefill at B=1, S=4096
+  through the flash kernel on the local heads (28 launches, all on the
+  Hopper kernel) held to the plain parameters' prefill, and two
+  ``make_train_step`` steps on each, in turns, held to 13g's bars.
 
 Flash attention has two kernels (``ops.route``): bf16 goes to the Hopper
 kernel (``wgmma`` for both products, a TMA-fed K/V ring, a producer
@@ -509,10 +520,12 @@ def check_dense(kops, x, centers, what: str) -> int:
 # the whole-fit k-means kernels (kmeans_fit, kmeans_fit_segmented)
 # ---------------------------------------------------------------------------
 def bits_equal(a, b) -> bool:
-    """Two f32 tensors equal bit for bit (the sign of zero included)."""
+    """Two floating tensors of one type equal bit for bit (the sign of zero
+    included)."""
     import torch
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(it), b.contiguous().view(it))
 
 
 def masked_case(b, n, d, rng, dev, k=4, empty=False, dead_row=None):
@@ -2539,6 +2552,262 @@ def run_phase15(dev, fops, kops, families=tuple(PHASE15)) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the sharding layer
+# ---------------------------------------------------------------------------
+# the dry-run's cells of 16a: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", False),
+                ("qwen3-1.7b", "decode_32k", True))
+SHARDED = dict(batch=1, seq=4096)       # 16b's prefill and train steps
+DRYRUN_TIMEOUT_S = 300
+
+
+def start_dryrun(root: str) -> dict:
+    """16a's dry-run cells, each in a child process of its own (the fake
+    process group is process-wide), all started together; ``finish_dryrun``
+    collects them."""
+    out = os.path.join(root, "build", "chip_smoke_dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = {}
+    for arch, shape, mp in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out]
+        procs[(arch, shape, mp)] = subprocess.Popen(
+            cmd + (["--multi-pod"] if mp else []), env=env, cwd=root,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return {"out": out, "procs": procs, "t0": time.time()}
+
+
+def finish_dryrun(run: dict) -> list:
+    """Wait for 16a's children; their records, each ``ok`` or the phase
+    fails (a child past ``DRYRUN_TIMEOUT_S`` is killed and fails it)."""
+    recs = []
+    try:
+        for (arch, shape, mp), proc in run["procs"].items():
+            left = max(DRYRUN_TIMEOUT_S - (time.time() - run["t0"]), 1)
+            _, err = proc.communicate(timeout=left)
+            tag = "multipod" if mp else "singlepod"
+            path = os.path.join(run["out"], f"{arch}-{shape}-{tag}.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {
+                "status": "no record", "error": "\n".join(
+                    ln for ln in err.splitlines()
+                    if "Warning" not in ln and "] W" not in ln)[-3000:]}
+            if proc.returncode != 0 or rec["status"] != "ok":
+                raise AssertionError(
+                    f"16a dry-run {arch} {shape} {tag}: exit "
+                    f"{proc.returncode}, {rec['status']}: {rec.get('error')}"
+                    f"\n{rec.get('trace', '')}")
+            recs.append(rec)
+    finally:
+        for proc in run["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def report_dryrun(recs: list, wall: float) -> None:
+    for r in recs:
+        t = r["roofline"]
+        log(f"[sharding] 16a dry-run {r['arch']} {r['shape']} on "
+            f"{r['chips']} cards {r['mesh']}: {r['status']}, "
+            f"{r['lower_s']} s; dominant {t['dominant']} "
+            f"({t['bound_s'] * 1e3:.2f} ms; compute "
+            f"{t['compute_s'] * 1e3:.2f}, memory {t['memory_s'] * 1e3:.2f}, "
+            f"collective {t['collective_s'] * 1e3:.2f} ms on H100 "
+            f"constants); per-card peak {gb(r['memory']['peak_bytes'] / 1e9)}"
+            f"; collective bytes {r['collective_bytes']:,} "
+            f"({r['collectives']['count']} calls); fallbacks "
+            f"{r['fallbacks']}")
+    log(f"[sharding] 16a: both cells in child processes, {wall:.1f} s")
+
+
+def load_leaves(model, leaves: dict):
+    """``model`` (on ``meta``) with each named parameter replaced by the
+    tensor of ``leaves``."""
+    import torch
+    for name, t in leaves.items():
+        mod, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(mod), attr, torch.nn.Parameter(t))
+    return model
+
+
+def run_sharded_full(dev, fops, root: str) -> dict:
+    """16b: qwen3-1.7b at full width (28 layers, seeded bf16 weights) on
+    ``make_host_mesh()`` (NCCL, a world of one): the parameters saved with
+    ``CheckpointManager`` and restored with ``shardings=`` from
+    ``rules.param_specs``; a prefill at B=1, S=4096 through the flash
+    kernel on the DTensor parameters under the dry-run's constraints (its
+    launches counted from 0) held to the plain parameters' prefill, the two
+    timed in turns; two ``make_train_step`` steps (dense route, remat,
+    ``lr_warmup=1``) on each in turns, held to 13g's bars; the peak
+    memory."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.sharding import (NamedSharding, batch_specs,
+                                      param_specs, shard_tree)
+    from repro_torch.train import make_prefill_step, make_train_step
+    from repro_torch.train.step import abstract_params, to_device
+    cfg = get_arch("qwen3-1.7b")
+    b, s = SHARDED["batch"], SHARDED["seq"]
+    t = TRAIN_FULL
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(dev)
+    ck = os.path.join(root, "build", "chip_smoke_sharded")
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        plain = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                               device=dev)
+        leaves = dict(plain.named_parameters())
+        specs = param_specs(cfg, mesh, plain)
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(ck)
+        mgr.save(0, leaves)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mgr.restore(leaves, shardings={
+            n: NamedSharding(mesh, specs[n]) for n in leaves})
+        sync(dev)
+        t_restore = time.perf_counter() - t0
+        if not all(bits_equal(back[n].to_local(), p.detach())
+                   for n, p in leaves.items()):
+            raise AssertionError("16b: the restored leaves differ from the "
+                                 "saved ones")
+        sharded = load_leaves(abstract_params(cfg), back)
+        del back
+        shutil.rmtree(ck, ignore_errors=True)
+        gen = torch.Generator(dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                         device=dev)}
+        dbatch = shard_tree(batch, batch_specs(cfg, mesh, batch), mesh)
+        sp = dc.replace(SHAPES["prefill_32k"], global_batch=b, seq_len=s)
+        dryrun._set_constraints(mesh, sp)
+        try:
+            step = make_prefill_step(cfg, use_flash=True)
+            fops.mha.launches = 0
+            fops.mha.kernel_launches = dict.fromkeys(fops.KERNELS, 0)
+            got = step(sharded, dbatch)
+            sync(dev)
+            launches = dict(fops.mha.kernel_launches)
+            want = step(plain, batch)
+            times = turns({"plain": lambda: step(plain, batch),
+                           "dtensor": lambda: step(sharded, dbatch)}, reps=2)
+        finally:
+            dryrun._clear_constraints()
+        if launches != {"wgmma": cfg.n_layers, "simt": 0}:
+            raise AssertionError(f"16b: prefill launches by kernel "
+                                 f"{launches}; want {cfg.n_layers}, all on "
+                                 f"the Hopper kernel")
+        got_l = got.full_tensor()[:, 0]
+        same = bits_equal(got_l, want[:, 0])
+        rel = logits_close(got_l.float().cpu().numpy(),
+                           want[:, 0].float().cpu().numpy(), "16b prefill")
+        del got, want
+        # two train steps on each, in turns
+        bars = train_bars(json.load(open(TRAIN_GOLDEN)))
+        pipe = DataPipeline(vocab=cfg.vocab, seq_len=t["seq"],
+                            global_batch=t["batch"], seed=0)
+        batches = [to_device(pipe.batch(i), dev) for i in range(2)]
+        dbatches = [shard_tree(x, batch_specs(cfg, mesh, x), mesh)
+                    for x in batches]
+        runs = {}
+        for name, params in (("dtensor", sharded), ("plain", plain)):
+            runs[name] = {"params": params, "opt": init_opt_state(params),
+                          "step": make_train_step(
+                              cfg, remat=True, lr_peak=t["lr_peak"],
+                              lr_warmup=t["lr_warmup"], device=dev),
+                          "rows": []}
+        for i in range(2):
+            for name in ("dtensor", "plain"):
+                r = runs[name]
+                x = dbatches[i] if name == "dtensor" else batches[i]
+                sync(dev)
+                t0 = time.perf_counter()
+                r["params"], r["opt"], m = r["step"](r["params"], r["opt"], x)
+                sync(dev)
+                r["rows"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                  **{k: float(v.full_tensor() if hasattr(
+                                      v, "full_tensor") else v)
+                                     for k, v in m.items()}})
+        rows = []
+        for a, p in zip(runs["dtensor"]["rows"], runs["plain"]["rows"]):
+            for k, bar in (("loss", bars["loss"]), ("grad_norm",
+                                                    bars["grad"])):
+                if not abs(a[k] - p[k]) <= bar * abs(p[k]):
+                    raise AssertionError(f"16b train {k}: DTensor {a[k]!r}, "
+                                         f"plain {p[k]!r} (bar {bar:.4g})")
+            rows.append({"dtensor": a, "plain": p,
+                         "bitwise": all(a[k] == p[k] for k in ("loss",
+                                                               "grad_norm",
+                                                               "lr"))})
+        peak = torch.cuda.max_memory_allocated()
+        del runs, sharded, plain
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ck, ignore_errors=True)
+    return {"launches": launches, "bitwise_logits": same, "logit_rel": rel,
+            "prefill_ms": times, "train": rows, "peak_bytes": peak,
+            "save_s": t_save, "restore_s": t_restore, "bars": bars,
+            "leaves": len(leaves)}
+
+
+def run_phase16(dev, fops, r13=None) -> dict:
+    """Phase 16, the sharding layer: 16a the dry-run's cells in child
+    processes on the host's CPU while 16b runs qwen3-1.7b on DTensor
+    parameters on the card (``r13``: phase 13's result, whose plain steps
+    16b's are set beside)."""
+    t0 = time.time()
+    run = start_dryrun(ROOT)
+    r = {"sharded": run_sharded_full(dev, fops, ROOT)}
+    m = r["sharded"]
+    pf = m["prefill_ms"]
+    log(f"[sharding] 16b qwen3-1.7b full width on make_host_mesh() (NCCL, "
+        f"world 1): {m['leaves']} leaves saved in {m['save_s']:.1f} s and "
+        f"restored with shardings= (rules.param_specs) in "
+        f"{m['restore_s']:.1f} s, equal to the saved; prefill B="
+        f"{SHARDED['batch']} S={SHARDED['seq']} with use_flash=True: "
+        f"launches by kernel {m['launches']}; logits bitwise equal to the "
+        f"plain parameters' prefill: {m['bitwise_logits']} (max |diff| "
+        f"{m['logit_rel']:.4g} x max|logit|, bar {LOGIT_RTOL:.4g}); in turns "
+        f"DTensor {pf['dtensor']:.1f} ms, plain {pf['plain']:.1f} ms; "
+        f"{nvidia_smi()}")
+    for i, row in enumerate(m["train"]):
+        a, p = row["dtensor"], row["plain"]
+        log(f"[sharding] 16b train step {i} (B={TRAIN_FULL['batch']} S="
+            f"{TRAIN_FULL['seq']}, dense route, remat): DTensor "
+            f"{a['ms']:.1f} ms loss {a['loss']!r} grad norm "
+            f"{a['grad_norm']!r}; plain {p['ms']:.1f} ms loss {p['loss']!r} "
+            f"grad norm {p['grad_norm']!r}; lr {a['lr']!r}; bitwise "
+            f"{row['bitwise']} (bars loss {m['bars']['loss']:.4g}, grad "
+            f"{m['bars']['grad']:.4g})")
+    plain13 = ([row["ms"] for row in r13["full"]["rows"][1:]]
+               if r13 else [])
+    log(f"[sharding] 16b: peak memory {gb(m['peak_bytes'] / 1e9)} (both "
+        f"models, their moments); phase 13a's plain steps "
+        f"{', '.join(f'{x:.1f}' for x in plain13) or 'not run'} ms; "
+        f"{nvidia_smi()}")
+    t1 = time.time()
+    r["dryrun"] = finish_dryrun(run)
+    report_dryrun(r["dryrun"], time.time() - run["t0"])
+    r["wall_s"] = time.time() - t0
+    log(f"[sharding] phase 16: {r['wall_s']:.1f} s (waiting for 16a after "
+        f"16b {time.time() - t1:.1f} s)")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 13: training on the card
 # ---------------------------------------------------------------------------
 def train_bars(golden: dict) -> dict:
@@ -4114,7 +4383,7 @@ def main() -> int:
 
     # 13. training: qwen3-1.7b train steps at full width, the training
     # golden, the Trainer's resume on the card
-    run_phase13(dev, tree8.result())
+    r13 = run_phase13(dev, tree8.result())
     del tree8
     tree_pool.shutdown()
 
@@ -4126,6 +4395,12 @@ def main() -> int:
     # the flash kernel at d = 256), zamba2-2.7b and whisper-base at full
     # width (prefill, the server), their goldens
     r15 = run_phase15(dev, fops, kops)
+
+    # 16. the sharding layer: the dry-run's cells on a fake process group
+    # (child processes on the host), and qwen3-1.7b restored onto a one-card
+    # mesh as DTensor parameters, prefilling through the flash kernel on
+    # its local heads and taking train steps
+    r16 = run_phase16(dev, fops, r13)
 
     # 3b. the kernels at the shapes the paths handed them
     kernels = []
@@ -4255,6 +4530,15 @@ def main() -> int:
     log(f"[flash_attention] at one qwen3 layer B={b4} S={s4}: kernel "
         f"{t4k['ms']:.4f} ms, plain {t4k['plain_ms']:.4f} ms, sdpa "
         f"{t4k['library_ms']} ms, bound {bound4:.4f} ms (operations)")
+    # phase 16's launches (the DTensor prefill's local heads) at that shape
+    kernels.append(kernel_row(
+        "flash_attention_sharded", "cuda",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:70",
+        r16["sharded"]["launches"]["wgmma"], r_layer["err"], t4k["ms"],
+        t4k["plain_ms"], by4, op4, t4k["library_ms"],
+        {"B": b4, "S": s4, "H": layer[2], "Hkv": layer[3], "d": layer[4],
+         "dtype": "bf16"}, peak=BF16_FLOPS))
     for kr in kernels:
         log(f"[{kr['name']}] at path shape {kr['shape']}: kernel "
             f"{kr['ms']:.4f} ms, plain {kr['plain_ms']:.4f} ms, bound "

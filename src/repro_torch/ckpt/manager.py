@@ -15,9 +15,10 @@ package restores in the other.
   step's in-place update cannot reach the snapshot.
 
 Leaves are tensors (any device) or numpy arrays.  ``restore`` rebuilds
-``template``'s structure with CPU tensors, or on ``device``.  Restoring
-onto a mesh (the reference's ``shardings``) is the multi-card layer,
-ROADMAP.md Queue 1 item 14.
+``template``'s structure with CPU tensors, on ``device``, or -- the
+reference's elastic restore -- distributed onto a mesh by ``shardings``
+(``sharding.NamedSharding`` leaves: each leaf a DTensor on its mesh with
+the spec's placements, the counterpart of ``jax.device_put(a, s)``).
 """
 from __future__ import annotations
 
@@ -89,6 +90,27 @@ def _raw(leaf) -> tuple:
     return np.ascontiguousarray(a).tobytes(), list(a.shape), str(a.dtype)
 
 
+def check_shardings(shardings: Any) -> List[Any]:
+    """The leaves of a mapping or tree of ``sharding.NamedSharding`` in the
+    flatten order; any other leaf raises ``TypeError``."""
+    from ..sharding import NamedSharding
+    leaves = tree_flatten(shardings)
+    for x in leaves:
+        if not isinstance(x, NamedSharding):
+            raise TypeError(f"a shardings leaf must be a sharding."
+                            f"NamedSharding, not {type(x).__name__}: {x!r}")
+    return leaves
+
+
+def _onto(t: torch.Tensor, sh) -> torch.Tensor:
+    """A restored leaf distributed onto ``sh.mesh`` by ``sh.spec``."""
+    from torch.distributed.tensor import distribute_tensor
+    from ..sharding import dtensor_mesh, placements
+    return distribute_tensor(t.to(sh.mesh.device_type),
+                             dtensor_mesh(sh.mesh),
+                             placements(sh.spec, sh.mesh))
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -155,13 +177,20 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
     def restore(self, template: Any, step: Optional[int] = None,
                 device=None, shardings: Any = None) -> Any:
-        """Restore into ``template``'s structure: CPU tensors, or tensors
-        on ``device``.  ``shardings`` (the reference's elastic restore onto
-        a mesh) raises ``NotImplementedError``."""
+        """Restore into ``template``'s structure: CPU tensors, tensors on
+        ``device``, or with ``shardings`` (a mapping or tree of
+        ``sharding.NamedSharding`` matching ``template``; not with
+        ``device``) DTensors, each leaf distributed onto its sharding's
+        mesh by its spec.  A ``shardings`` leaf that is no
+        ``NamedSharding`` raises ``TypeError``."""
         if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings=) is the multi-card "
-                "layer: ROADMAP.md Queue 1 item 14")
+            if device is not None:
+                raise ValueError("restore: pass device= or shardings=, "
+                                 "not both (the mesh names the device)")
+            targets = check_shardings(shardings)
+            if len(targets) != len(tree_flatten(template)):
+                raise ValueError(f"{len(targets)} shardings for a template "
+                                 f"of {len(tree_flatten(template))} leaves")
         dev = None if device is None else _device.resolve(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -180,4 +209,6 @@ class CheckpointManager:
             t = (torch.frombuffer(bytearray(raw), dtype=dtype) if raw
                  else torch.empty(0, dtype=dtype)).reshape(meta["shape"])
             leaves.append(t if dev is None else t.to(dev))
+        if shardings is not None:
+            leaves = [_onto(t, sh) for t, sh in zip(leaves, targets)]
         return tree_unflatten(template, leaves)

@@ -1292,7 +1292,7 @@ def one_card(devices: Optional[int]) -> None:
     if devices is not None and devices > 1:
         raise NotImplementedError(
             f"devices={devices}: the bucketed engine runs on one card; "
-            "sharding its groups over cards is ROADMAP.md Queue 1 item 14")
+            "sharding its groups over cards is ROADMAP.md Queue 1 item 14b")
 
 
 def drive_lanes_bucketed(groups: List[List[Lane]], states=None,

@@ -38,7 +38,7 @@ bucketed engine is a plan-level engine (``exp.ExecPlan``):
 the JAX package's do.
 
 Not ported yet (ROADMAP.md Queue 1): sharding a bucket's groups over
-several cards (item 14).  Asking for it raises ``NotImplementedError``.
+several cards (item 14b).  Asking for it raises ``NotImplementedError``.
 
 Every entry point takes ``device=`` (default: the card) for the LLC
 state and the LERN fits.  The pool's workers share the caller's device:
@@ -878,7 +878,7 @@ def run_bucketed(points: Sequence[SweepPoint], max_lanes: int = MAX_LANES,
     through ``simulate_bucket`` -- the whole sweep on the card instead of
     group by group.  ``pipeline`` goes to the bucketed engine (None =
     ``REPRO_BUCKET_PIPELINE``); ``devices`` of None or 1 is the one card,
-    more raises ``NotImplementedError`` before any work (item 14).
+    more raises ``NotImplementedError`` before any work (item 14b).
     ``report`` receives per-point records and fault events.  Returns
     results in ``points`` order, bitwise those of ``map_points``."""
     from . import fused

@@ -46,7 +46,7 @@ class ExecPlan:
     jobs:       process-pool width of ``sweep.map_points`` (default 1;
                 the bucketed engine ignores it)
     devices:    cards for the bucketed engine (default None: the one
-                card; > 1 is ROADMAP.md Queue 1 item 14 and raises)
+                card; > 1 is ROADMAP.md Queue 1 item 14b and raises)
     cache:      read/write the sim disk result cache (default True)
     fit_engine: "auto" | "bucketed" | "segmented" k-means fit engine
                 (default: env ``REPRO_LERN_FIT``, else "auto")

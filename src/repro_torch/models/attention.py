@@ -6,16 +6,21 @@ The flash route goes through the port's hand-written kernel
 torch ops with the JAX package's rounding points (scores of the dense
 route rounded to the input type before the f32 softmax, weights cast back
 to it before the PV product).
+
+On DTensor inputs every route runs on each card's local batch rows and
+heads (``_on_local_heads``): the flash kernel on the card, the dense and
+chunked routes as they are.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..kernels.flash_attention import ops as flash_ops
-from .layers import _init, _ones, apply_rope, rmsnorm
+from .layers import (_init, _ones, apply_rope, contiguous_grads, is_dtensor,
+                     rmsnorm, run_split)
 
 # use the chunked online-softmax path for sequences >= this (0 = off)
 CHUNKED_SEQ = 8192
@@ -120,6 +125,75 @@ def _sdpa_chunked(q, k, v, n_rep, *, causal=True, chunk=1024, window=None):
     return out.transpose(1, 2).to(q.dtype)
 
 
+def local_kv_heads(n_heads: int, n_kv: int, tp: int, rank: int) -> List[int]:
+    """The K/V heads that q heads ``[rank * H / tp, (rank + 1) * H / tp)``
+    attend to when K/V are replicated: head ``h`` reads ``h // (H / n_kv)``
+    of the global index.  A contiguous group when whole groups are local
+    (one head each for ``H / tp`` at most one group), else one K/V head a
+    q head, so that local q head ``j`` reads local K/V head
+    ``j // (H_local / n_kv_local)`` as the kernel maps it."""
+    hl, rep = n_heads // tp, n_heads // n_kv
+    heads = [(rank * hl + j) // rep for j in range(hl)]
+    uniq = sorted(set(heads))
+    if hl % len(uniq) == 0 and heads == [u for u in uniq
+                                         for _ in range(hl // len(uniq))]:
+        return uniq
+    return heads
+
+
+def _dense(mask):
+    """The dense route with ``mask`` as a route of ``_on_local_heads``
+    (the GQA repeat from the local head counts)."""
+    return lambda q, k, v: _sdpa(q, k, v, mask, q.shape[2] // k.shape[2])
+
+
+def _on_local_heads(fn, q, k, v, n_heads: int, n_kv: int):
+    """``fn(q, k, v)`` -> [B, Sq, H, d], an attention route, on DTensor q,
+    k, v [B, S, heads, d] as each rank's local [B_local, Sq, H_local, d]:
+    the batch kept as q has it, the heads sharded on "model" where H
+    divides by its size (else replicated); K/V heads sharded with them
+    where n_kv divides too, else replicated and cut to the ones the local
+    q heads read (``local_kv_heads``), their gradient then a partial sum
+    over "model".  The result has q's placements.  Attention is
+    independent across batch rows and heads, so this is the global result;
+    DTensor's own products would merge batch and heads into one
+    strided-sharded dim, which its propagation cannot lay out under
+    ``FakeTensorMode``, and the flash kernel takes no DTensor.  Plain
+    tensors go to ``fn`` as they are."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    tp = mesh.shape[mi]
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in q.placements]
+    q_heads = n_heads % tp == 0
+    kv_heads = q_heads and n_kv % tp == 0
+    q_pl, kv_pl = list(batch), list(batch)
+    q_pl[mi] = Shard(2) if q_heads else Replicate()
+    kv_pl[mi] = Shard(2) if kv_heads else Replicate()
+    kv_grad = list(kv_pl)
+    if q_heads and not kv_heads:
+        kv_grad[mi] = Partial()
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+              for t in (k, v))
+    ql, kl, vl = contiguous_grads(ql, kl, vl)
+    if q_heads and not kv_heads:
+        idx = local_kv_heads(n_heads, n_kv, tp, mesh.get_local_rank("model"))
+        sel = torch.tensor(idx, device=kl.device)
+        kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
+    split = 1
+    for i, pl in enumerate(q_pl):
+        split *= mesh.shape[i] if isinstance(pl, Shard) else 1
+    out = run_split(fn, split)(ql, kl, vl).contiguous()
+    return DTensor.from_local(out, mesh, q_pl, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
+
+
 def causal_mask(s: int, window: Optional[int] = None,
                 device=None) -> torch.Tensor:
     i = torch.arange(s, device=device)[:, None]
@@ -147,17 +221,19 @@ def attention(p, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
         q = (x @ p.wq).reshape(b, s, n_heads, d_head)
         k, v = cross_kv
         mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, mask, n_heads // k.shape[2])
+        out = _on_local_heads(_dense(mask), q, k, v, n_heads, k.shape[2])
     else:
         q, k, v = _qkv(p, x, n_heads, n_kv, d_head, positions, rope_theta)
         if use_flash and causal and window is None:
-            out = flash_ops.mha(q, k, v, causal=True)
+            route = lambda q, k, v: flash_ops.mha(q, k, v, causal=True)
         elif CHUNKED_SEQ and s >= CHUNKED_SEQ and causal:
-            out = _sdpa_chunked(q, k, v, n_heads // n_kv, window=window)
+            route = lambda q, k, v: _sdpa_chunked(
+                q, k, v, q.shape[2] // k.shape[2], window=window)
         else:
             mask = (causal_mask(s, window, x.device) if causal else
                     torch.ones((s, s), dtype=torch.bool, device=x.device))
-            out = _sdpa(q, k, v, mask, n_heads // n_kv)
+            route = _dense(mask)
+        out = _on_local_heads(route, q, k, v, n_heads, n_kv)
     return out.reshape(b, s, n_heads * d_head) @ p.wo
 
 
@@ -195,6 +271,6 @@ def decode_step(p, x: torch.Tensor, cache: KVCache, *, n_heads: int,
     else:                                   # ring buffer: all slots live
         valid = torch.ones(s_max, dtype=torch.bool, device=x.device)
     mask = valid[None, None, :]                # [B, 1, S_max]
-    out = _sdpa(q, cache.k, cache.v, mask, n_heads // n_kv)
+    out = _on_local_heads(_dense(mask), q, cache.k, cache.v, n_heads, n_kv)
     out = out.reshape(b, 1, n_heads * d_head) @ p.wo
     return out, KVCache(cache.k, cache.v, pos + 1)

@@ -11,11 +11,22 @@ run under ``torch.inference_mode()`` and record no graph.
 """
 from __future__ import annotations
 
+import contextvars
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def is_dtensor(x) -> bool:
+    """``x`` is a DTensor.  Asked without importing
+    ``torch.distributed.tensor`` (a second or more a process, paid by every
+    sweep worker that imports the models): no DTensor exists before that
+    module is imported, and the sharding code that makes them imports it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -114,7 +125,39 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows of ``tokens``.  A DTensor table takes
+    ``F.embedding`` (the same rows): DTensor before torch 2.13 cannot lay
+    out the backward of ``table[tokens]`` (an accumulating ``index_put``)
+    for batch-sharded tokens.  The lookup of a vocab-sharded table is a
+    partial sum over "model" (each rank's own rows); it is reduced here."""
+    if is_dtensor(p.table):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = p.table.device_mesh
+        if not is_dtensor(tokens):              # replicated, as implicit
+            tokens = DTensor.from_local(tokens, mesh,
+                                        [Replicate()] * mesh.ndim,
+                                        run_check=False)
+        x = F.embedding(tokens, p.table)
+        x = x.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                  for q in x.placements])
+        return _ReducedGrad.apply(x)
     return p.table[tokens]
+
+
+class _ReducedGrad(torch.autograd.Function):
+    """The identity on a DTensor whose gradient's partial sums are reduced
+    (DTensor cannot turn a partial-sum gradient into the embedding's
+    masked partial one)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        return g.redistribute(g.device_mesh, [
+            Replicate() if q.is_partial() else q for q in g.placements])
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -168,3 +211,108 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation."""
     h = F.gelu((x @ p.w_up + p.b_up).to(x.dtype), approximate="tanh")
     return (h @ p.w_down + p.b_down).to(x.dtype)
+
+
+# --- local computation on DTensors -------------------------------------------
+_SPLIT = contextvars.ContextVar("local_split", default=1)
+
+
+def local_split() -> int:
+    """How many ranks split the local computation running now (1 outside
+    one): the dry-run scales what it counts there to the global work."""
+    return _SPLIT.get()
+
+
+def run_split(fn, split: int):
+    """``fn`` wrapped to run with ``local_split()`` = ``split``."""
+    def run(*a):
+        token = _SPLIT.set(split)
+        try:
+            return fn(*a)
+        finally:
+            _SPLIT.reset(token)
+    return run
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity whose gradient is made contiguous.  A local gradient
+    handed back to DTensor is taken as laid out contiguously at its global
+    shape; the local backward of a product can give a transposed one,
+    which a later view of the DTensor gradient then refuses."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grads(*tensors):
+    """Each tensor through ``_ContiguousGrad`` where autograd records it."""
+    return tuple(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor)
+                 and t.requires_grad and torch.is_grad_enabled() else t
+                 for t in tensors)
+
+
+def local_rows(fn, args, outs, *, model_size: int, rows: bool = True):
+    """``fn(*args)`` on each rank's local shards when an arg is a DTensor
+    (``local_map``), else as it is.
+
+    ``args``: (tensor or other, batch dim or None, model dim or None) a
+    piece; ``outs``: (batch dim or None, model dim, "sum" or None) an
+    output.  The batch is sharded as the first arg's batch dim is (on any
+    mesh dim but "model"; ``rows=False`` gathers it); the model dims are
+    sharded on "model" when ``model_ok`` (the caller checked they divide),
+    and an output marked "sum" is then a partial sum over "model".  A
+    gradient is laid out as its input, but a partial sum over the mesh dims
+    its input does not split while the work does (weights over the batch,
+    tensors without a model dim over "model").  ``fn`` must compute each
+    batch row (and each model slice) from its own rows and slices."""
+    dts = [a for a, _, _ in args if is_dtensor(a)]
+    if not dts:
+        return fn(*(a for a, _, _ in args))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dts[0].device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model")
+    model_ok = model_size % mesh.shape[mi] == 0
+    first, b0, _ = args[0]
+    batch = [i for i, p in enumerate(first.placements) if rows and i != mi
+             and isinstance(p, Shard) and p.dim == b0]
+
+    def place(bd, md, grad):
+        out = []
+        for i in range(len(names)):
+            if i in batch:
+                out.append(Shard(bd) if bd is not None else
+                           Partial() if grad else Replicate())
+            elif i == mi and model_ok:
+                out.append(Shard(md) if isinstance(md, int) else
+                           Partial() if grad or md == "sum" else Replicate())
+            else:
+                out.append(Replicate())
+        return out
+
+    # plain tensors take part as replicated DTensors, cut to the layout
+    args = [(DTensor.from_local(a, mesh, [Replicate()] * len(names),
+                                run_check=False)
+             if isinstance(a, torch.Tensor) and not is_dtensor(a)
+             else a, bd, md) for a, bd, md in args]
+    in_pl = tuple(place(bd, md, False) if isinstance(a, torch.Tensor)
+                  else None for a, bd, md in args)
+    grad_pl = tuple(place(bd, md, True) if isinstance(a, torch.Tensor)
+                    else None for a, bd, md in args)
+    out_pl = tuple(place(bd, md, False) for bd, md in outs)
+    split = 1
+    for i in batch + ([mi] if model_ok else []):
+        split *= mesh.shape[i]
+    mapped = local_map(run_split(lambda *a: fn(*contiguous_grads(*a)),
+                                 split),
+                       out_placements=out_pl if len(outs) > 1
+                       else out_pl[0], in_placements=in_pl,
+                       in_grad_placements=grad_pl, device_mesh=mesh,
+                       redistribute_inputs=True)
+    return mapped(*(a for a, _, _ in args))

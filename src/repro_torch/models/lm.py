@@ -15,6 +15,14 @@ the tokens); ``hybrid`` (Zamba2: groups of ``attn_every`` Mamba2 layers,
 each group followed by one attention block whose parameters all groups
 share); ``encdec`` (whisper: a non-causal encoder over frame embeddings,
 ``encode``, and decoder layers with cross-attention to it).
+
+Every function here runs on plain tensors or on DTensor parameters (the
+step factories of ``train.step`` enter ``implicit_replication()`` for the
+tensors the model makes as it runs).  ``ACT_SPEC`` and ``LOGITS_SPEC`` are
+the reference's activation constraints; the reference's ``SCAN_UNROLL``
+(a dry-run switch to unroll its layer scans for XLA's cost analysis) has
+no counterpart: the layer loop here is Python, every layer runs and is
+counted.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..configs.base import ModelConfig
+from ..sharding import rules as _rules
 from . import attention as attn_mod
 from . import layers as L
 from . import moe as moe_mod
@@ -173,6 +182,79 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
+# Activation / logits sharding constraints: without them the residual
+# stream follows whatever layout the weights' products leave it in;
+# constraining it to batch-sharded makes the FSDP weights the thing that
+# moves (per-layer weight all-gathers).  ``sharding.NamedSharding``s, set
+# by the dry-run (``launch.dryrun``) and the sharded steps; None = no
+# constraint.  Reset them where they are set (the tests' autouse fixtures).
+ACT_SPEC = None      # NamedSharding for [B, S, d] activations
+LOGITS_SPEC = None   # NamedSharding for [B, C, vocab] CE-chunk logits
+
+
+def _wsc(x, spec):
+    """``x`` redistributed to ``spec``'s placements (``with_sharding_
+    constraint``); the identity on a plain tensor or a None spec."""
+    if spec is None or not L.is_dtensor(x):
+        return x
+    return x.redistribute(_rules.dtensor_mesh(spec.mesh),
+                          _rules.placements(spec, spec.mesh))
+
+
+class _Gathered:
+    """A module seen through ``ACT_SPEC``: each DTensor parameter read from
+    it is gathered over the mesh dims that shard the activations' batch
+    (its other placements kept), submodules and lists of them seen the
+    same way, everything else as it is.
+
+    GSPMD infers these per-layer weight all-gathers from the activation
+    constraint (true FSDP); DTensor lays out each op from its operands as
+    they come, so without them it moves the batch-sharded activations to
+    the weights instead (the embedding on a vocab- and d-sharded table
+    then gathers the whole batch).  A read gathers anew, as FSDP does
+    again in the backward."""
+
+    __slots__ = ("_mod", "_dims")
+
+    def __init__(self, mod, dims):
+        self._mod = mod
+        self._dims = dims
+
+    def _view(self, v):
+        if isinstance(v, nn.Module):
+            return _Gathered(v, self._dims)
+        if L.is_dtensor(v):
+            from torch.distributed.tensor import Replicate
+            pl = [Replicate() if i in self._dims else p
+                  for i, p in enumerate(v.placements)]
+            return v.redistribute(v.device_mesh, pl)
+        return v
+
+    def __getattr__(self, name):
+        return self._view(getattr(self._mod, name))
+
+    def __getitem__(self, i):
+        return self._view(self._mod[i])
+
+    def __iter__(self):
+        return (self._view(m) for m in self._mod)
+
+    def __len__(self):
+        return len(self._mod)
+
+
+def _fsdp(params):
+    """``params`` as the sharded steps read it: through ``_Gathered`` when
+    ``ACT_SPEC`` shards the batch of DTensor parameters, else as it is."""
+    if ACT_SPEC is None or isinstance(params, _Gathered) or \
+            not L.is_dtensor(params.embed.table):
+        return params
+    dims = {i for i, p in enumerate(_rules.placements(ACT_SPEC,
+                                                      ACT_SPEC.mesh))
+            if p.is_shard()}
+    return _Gathered(params, dims)
+
+
 def _mlp(cfg: ModelConfig, lp, y: torch.Tensor) -> torch.Tensor:
     if cfg.family == "moe":
         return moe_mod.dispatch(lp.moe, y, top_k=cfg.top_k)
@@ -182,29 +264,39 @@ def _mlp(cfg: ModelConfig, lp, y: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_block(cfg: ModelConfig, lp, x, use_flash):
+    """The reference constrains the block's input.  On DTensors every
+    block here constrains its input and the outputs of its row-parallel
+    products too (their partial sums reduced onto ``ACT_SPEC`` before the
+    residual adds), which GSPMD infers and DTensor's op-by-op choice does
+    not."""
+    x = _wsc(x, ACT_SPEC)
     h = attn_mod.attention(
         lp.attn, L.rmsnorm(lp.ln1, x), n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, d_head=cfg.d_head, window=cfg.window,
         rope_theta=cfg.rope_theta, use_flash=use_flash)
-    x = x + h
-    return x + _mlp(cfg, lp, L.rmsnorm(lp.ln2, x))
+    x = x + _wsc(h, ACT_SPEC)
+    return x + _wsc(_mlp(cfg, lp, L.rmsnorm(lp.ln2, x)), ACT_SPEC)
 
 
 def _rwkv_block(cfg: ModelConfig, lp, x, use_flash):
     """One RWKV6 layer over the whole sequence from a zero state and a zero
     shift (the reference's prefill); ``use_flash`` has no say here."""
+    x = _wsc(x, ACT_SPEC)
     bsz = x.shape[0]
     s0 = torch.zeros((bsz, cfg.ssm_heads, cfg.d_head, cfg.d_head),
                      dtype=torch.float32, device=x.device)
     zero = torch.zeros((bsz, cfg.d_model), dtype=x.dtype, device=x.device)
     h, _ = ssm_mod.rwkv_time_mix(lp.tm, L.rmsnorm(lp.ln1, x), zero, s0)
-    x = x + h
-    return x + ssm_mod.rwkv_channel_mix(lp.tm, L.rmsnorm(lp.ln2, x), zero)
+    x = x + _wsc(h, ACT_SPEC)
+    return x + _wsc(ssm_mod.rwkv_channel_mix(lp.tm, L.rmsnorm(lp.ln2, x),
+                                             zero), ACT_SPEC)
 
 
 def _mamba_block(cfg: ModelConfig, lp, x, use_flash):
     """One layer of the ``hybrid`` family; ``use_flash`` has no say here."""
-    return x + ssm_mod.mamba_forward(lp.mamba, L.rmsnorm(lp.ln1, x))
+    x = _wsc(x, ACT_SPEC)
+    return x + _wsc(ssm_mod.mamba_forward(lp.mamba, L.rmsnorm(lp.ln1, x)),
+                    ACT_SPEC)
 
 
 def _groups(cfg: ModelConfig) -> List[range]:
@@ -222,16 +314,17 @@ def _encdec_block(cfg: ModelConfig, lp, x, enc):
     """A whisper decoder layer over the whole sequence: causal
     self-attention, cross-attention to the encoder output ``enc`` (its K
     and V projected by this layer), GELU MLP."""
+    x = _wsc(x, ACT_SPEC)
     h = attn_mod.attention(
         lp.attn, L.layernorm(lp.ln1, x), n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, rope_theta=cfg.rope_theta)
-    x = x + h
+    x = x + _wsc(h, ACT_SPEC)
     ek, ev = _cross_kv(cfg, lp, enc)
     h = attn_mod.attention(
         lp.xattn, L.layernorm(lp.ln_x, x), n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, d_head=cfg.d_head, cross_kv=(ek, ev))
-    x = x + h
-    return x + L.gelu_mlp(lp.mlp, L.layernorm(lp.ln2, x))
+    x = x + _wsc(h, ACT_SPEC)
+    return x + _wsc(L.gelu_mlp(lp.mlp, L.layernorm(lp.ln2, x)), ACT_SPEC)
 
 
 def _cross_kv(cfg: ModelConfig, lp, enc):
@@ -241,11 +334,12 @@ def _cross_kv(cfg: ModelConfig, lp, enc):
 
 
 def _encoder_block(cfg: ModelConfig, lp, x, use_flash):
+    x = _wsc(x, ACT_SPEC)
     h = attn_mod.attention(
         lp.attn, L.layernorm(lp.ln1, x), n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, causal=False, rope_theta=0.0)
-    x = x + h
-    return x + L.gelu_mlp(lp.mlp, L.layernorm(lp.ln2, x))
+    x = x + _wsc(h, ACT_SPEC)
+    return x + _wsc(L.gelu_mlp(lp.mlp, L.layernorm(lp.ln2, x)), ACT_SPEC)
 
 
 def _remat(remat: bool) -> bool:
@@ -300,7 +394,8 @@ def hidden(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     ``batch["enc_embeds"]`` [B, T, d] and adds the sinusoid to the
     tokens."""
     _ported_only(cfg)
-    x = L.embed(params.embed, batch["tokens"])
+    params = _fsdp(params)
+    x = _wsc(L.embed(params.embed, batch["tokens"]), ACT_SPEC)
     if cfg.family == "vlm":
         prefix = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([prefix, x], dim=1)
@@ -328,20 +423,53 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             last_only: bool = False) -> torch.Tensor:
     """f32 logits [B, S, vocab].  last_only=True (prefill): unembed only
     the final position -- never materialize [B, 32K, vocab]."""
+    params = _fsdp(params)
     x = hidden(params, cfg, batch, use_flash=use_flash, remat=remat)
     if last_only:
         x = x[:, -1:, :]
     return L.unembed(params.embed, x)
 
 
+def _lse_and_label(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp over the vocabulary, the label's logit).  On DTensor
+    logits, whose vocabulary may be sharded on "model", both are reduced
+    where they lie: the max-shifted sum of exponentials (a max and a sum
+    over "model"; DTensor's ``logsumexp`` would gather the whole
+    vocabulary) and a masked sum for the pick (exactly the gathered value,
+    every other term being 0; DTensor's gather rule fails in its
+    reduction)."""
+    idx = labels.clamp(min=0).long()[..., None]
+    if not L.is_dtensor(logits):
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, idx)[..., 0])
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = [Replicate() if isinstance(p, Partial) else p
+          for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    # the layout of a reduction over the vocabulary: its shards gathered
+    red = [Replicate() if isinstance(p, Shard) and p.dim == last else p
+           for p in pl]
+    m = logits.amax(-1, keepdim=True).detach().redistribute(mesh, red)
+    se = torch.exp(logits - m).sum(-1).redistribute(mesh, red)
+    cols = torch.arange(logits.shape[-1], device=labels.device)
+    hit = cols == idx
+    if not L.is_dtensor(hit):          # plain labels: replicated
+        hit = DTensor.from_local(hit, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    hit = hit.redistribute(mesh, pl)
+    lab = torch.where(hit, logits, 0.0).sum(-1).redistribute(mesh, red)
+    return torch.log(se) + m[..., 0], lab
+
+
 def _ce_chunk(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
     """One sequence chunk of the cross-entropy: (sum of -log p(label) over
     the unmasked positions, their count), f32.  ``table`` is the f32 tied
     table (``L.unembed``'s product)."""
-    logits = x.float() @ table.T
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1,
-                       labels.clamp(min=0).long()[..., None])[..., 0]
+    x = _wsc(x, ACT_SPEC)
+    logits = _wsc(x.float() @ table.T, LOGITS_SPEC)
+    lse, lab = _lse_and_label(logits, labels)
     mask = (labels >= 0).float()
     return ((lse - lab) * mask).sum(), mask.sum()
 
@@ -354,6 +482,7 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     sum is divided by max(count, 1).  The table is cast to f32 once a
     call; with ``remat`` each chunk's logits are recomputed in the
     backward, so the [B, S, vocab] logits are never all alive at once."""
+    params = _fsdp(params)
     x = hidden(params, cfg, batch, remat=remat, **kw)
     labels = batch["labels"]
     s = x.shape[1]
@@ -527,7 +656,8 @@ def _encdec_decode(params: LM, cfg: ModelConfig, x: torch.Tensor,
             b, 1, cfg.n_heads, cfg.d_head)
         mask = torch.ones((1, xk.shape[2]), dtype=torch.bool,
                           device=x.device)
-        o = attn_mod._sdpa(q, xk[i], xv[i], mask, cfg.n_heads // cfg.n_kv)
+        o = attn_mod._on_local_heads(attn_mod._dense(mask), q, xk[i],
+                                     xv[i], cfg.n_heads, cfg.n_kv)
         x = x + o.reshape(b, 1, -1) @ lp.xattn.wo
         x = x + L.gelu_mlp(lp.mlp, L.layernorm(lp.ln2, x))
     return x
@@ -541,6 +671,7 @@ def decode_step(params: LM, cfg: ModelConfig, state: DecodeState,
     A hybrid depth that ``attn_every`` does not divide leaves the trailing
     layers' states as they are (the JAX package's new state drops them)."""
     _ported_only(cfg)
+    params = _fsdp(params)
     x = L.embed(params.embed, tokens)
     kv, extra = state.kv, state.extra
     akw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,

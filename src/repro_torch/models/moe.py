@@ -23,22 +23,42 @@ What the reference does, this does too, since its numbers depend on it:
 * The router runs in f32; the other products take the promoted type of
   their operands where JAX promotes (torch's ``@`` does not).
 
-The sharding constraint of the reference (``BATCH_SPEC``, ``_wsc_batch``)
-belongs to the multi-card layer (ROADMAP.md Queue 1 item 14).
+``BATCH_SPEC`` and ``_wsc_batch`` are the reference's batch-dim
+constraint on the sorted route's [B, E, C, d] expert buffers (set by the
+dry-run together with ``lm.ACT_SPEC``).  On DTensors the routed experts
+run on each rank's local shards (``_experts``), so the constraint lays
+out the route's input rows, which the buffers then follow.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import _init, swiglu, swiglu_init
+from ..sharding import rules as _rules
+from .layers import _init, is_dtensor, local_rows, swiglu, swiglu_init
 
 # dispatch route for S > 1: "sorted" (the reference's default) or "einsum"
 # (the one-hot route, kept for comparison)
 IMPL = "sorted"
+
+# batch-dim sharding constraint for the sorted route (set by the dry-run
+# together with lm.ACT_SPEC): the rows its local shards hold.
+BATCH_SPEC = None  # sharding.NamedSharding whose spec is P(fsdp)
+
+
+def _wsc_batch(x):
+    """``x`` redistributed to batch-sharded on ``BATCH_SPEC``'s axes, the
+    other dims replicated; the identity on a plain tensor or without a
+    spec."""
+    if BATCH_SPEC is None or not is_dtensor(x):
+        return x
+    full = _rules.P(BATCH_SPEC.spec[0], *(None,) * (x.ndim - 1))
+    return x.redistribute(_rules.dtensor_mesh(BATCH_SPEC.mesh),
+                          _rules.placements(full, BATCH_SPEC.mesh))
 
 
 class MoE(nn.Module):
@@ -89,11 +109,63 @@ def dispatch(p, x: torch.Tensor, *, top_k: int,
     return moe_ffn(p, x, top_k=top_k, capacity_factor=capacity_factor)
 
 
+class Experts(NamedTuple):
+    """The routed experts' weights (local shards on a mesh)."""
+    router: torch.Tensor
+    w_gate: torch.Tensor
+    w_up: torch.Tensor
+    w_down: torch.Tensor
+
+
+class _SwiGLU(NamedTuple):
+    w_gate: torch.Tensor
+    w_up: torch.Tensor
+    w_down: torch.Tensor
+
+
+def _experts(route, p, x: torch.Tensor, rows: bool, **kw) -> torch.Tensor:
+    """``route(Experts, x)`` [B, S, d], the routed experts' output, plus
+    the shared SwiGLU of x where there is one (its products over [B, S, d]
+    are the reference's over the [B * S, d] tokens).  On DTensors it runs
+    on each rank's local shards (``layers.local_rows``): the experts'
+    hidden columns on "model" where both hidden widths divide it (the
+    output then a partial sum over "model", the counterpart of the
+    reference's EP as TP-within-expert), the batch rows as ``BATCH_SPEC``
+    lays out x for the row-local sorted route (``rows``), all of them for
+    the one-hot route, whose capacity counts every token."""
+    args = [(x, 0, None), (p.router, None, None), (p.w_gate, None, 2),
+            (p.w_up, None, 2), (p.w_down, None, 1)]
+    width = p.w_gate.shape[2]
+    if hasattr(p, "shared"):
+        sh = p.shared
+        args += [(sh.w_gate, None, 1), (sh.w_up, None, 1),
+                 (sh.w_down, None, 0)]
+        width = math.gcd(width, sh.w_gate.shape[1])
+
+    def local(x, *w):
+        out = route(Experts(*w[:4]), x, **kw)
+        if len(w) > 4:
+            out = out + swiglu(_SwiGLU(*w[4:]), x)
+        return out
+
+    if rows:
+        x = _wsc_batch(x)
+        args[0] = (x, 0, None)
+    return local_rows(local, args, [(0, "sum")], model_size=width,
+                      rows=rows)
+
+
 def moe_ffn(p, x: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d].  Top-k softmax routing with a capacity
     over all B * S tokens, through one-hot dispatch and combine
     einsums."""
+    return _experts(_onehot, p, x, False, top_k=top_k,
+                    capacity_factor=capacity_factor)
+
+
+def _onehot(p, x: torch.Tensor, *, top_k: int,
+            capacity_factor: float) -> torch.Tensor:
     b, s, d = x.shape
     n_exp = p.router.shape[1]
     tokens = x.reshape(b * s, d)
@@ -124,8 +196,6 @@ def moe_ffn(p, x: torch.Tensor, *, top_k: int,
     # combine with routing weights
     comb = disp * weights[..., None, None].to(tokens.dtype)
     out = _einsum("ecd,tkec->td", expert_out, comb)
-    if hasattr(p, "shared"):
-        out = out + swiglu(p.shared, tokens)
     return out.reshape(b, s, d)
 
 
@@ -173,6 +243,12 @@ def moe_ffn_sorted(p, x: torch.Tensor, *, top_k: int,
     move by gathers into [B, E, C, d] expert buffers, the grouped expert
     products run over them, and each token's k contributions are summed
     in the stable sort's order.  Capacity is per batch row."""
+    return _experts(_sorted, p, x, True, top_k=top_k,
+                    capacity_factor=capacity_factor)
+
+
+def _sorted(p, x: torch.Tensor, *, top_k: int,
+            capacity_factor: float) -> torch.Tensor:
     b, s, d = x.shape
     n_exp = p.router.shape[1]
     r = sorted_route(p, x, top_k=top_k, capacity_factor=capacity_factor)
@@ -197,9 +273,7 @@ def moe_ffn_sorted(p, x: torch.Tensor, *, top_k: int,
     out = eout.new_zeros((b, s, d))
     for j in range(top_k):
         out = out + parts[:, :, j]
-    if hasattr(p, "shared"):
-        out = out + swiglu(p.shared, x.reshape(b * s, d)).reshape(b, s, d)
-    return out.reshape(b, s, d)
+    return out
 
 
 def aux_load_balance_loss(p, x: torch.Tensor, top_k: int) -> torch.Tensor:

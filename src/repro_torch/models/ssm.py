@@ -3,7 +3,9 @@ JAX package's ``models/ssm.py`` in PyTorch).
 
 Both run in recurrent form: a Python loop over time where the reference
 scans (``lax.scan``, plain JAX, no Pallas), and an O(1) state update a
-decode step.  A scan kernel is later work (ROADMAP.md Queue 2).
+decode step (the same loop, one step long).  A scan kernel is later work
+(ROADMAP.md Queue 2).  On DTensors the loops run on each rank's local
+batch rows and heads (``layers.local_rows``).
 
 The reference's ``_shape`` leaves (zero-filled arrays that its code reads
 head counts and widths from) are Python ints here (``Mamba.dims``,
@@ -21,8 +23,9 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
-from .layers import _init, _ones, _param, _zeros, mm
+from .layers import _init, _ones, _param, _zeros, local_rows, mm
 
 
 def _full(shape, value: float, device) -> nn.Parameter:
@@ -94,6 +97,84 @@ def _ssd_update(xt, bt, dtt):
     return (xt * dtt[..., None])[..., None] * bt[:, None, None, :]
 
 
+def _ssd_scan(xf, bf, cf, dt, decay, h):
+    """The SSD recurrence over time: xf [B,S,nh,dh], bf and cf [B,S,ds],
+    dt and decay [B,S,nh], h [B,nh,dh,ds] -> (y [B,S,nh,dh], final h)."""
+    ys = []
+    for t in range(xf.shape[1]):
+        h = h * decay[:, t, :, None, None] + _ssd_update(xf[:, t], bf[:, t],
+                                                         dt[:, t])
+        ys.append((h @ cf[:, t, None, :, None])[..., 0])
+    return torch.stack(ys, 1), h
+
+
+# ---------------------------------------------------------------------------
+# the recurrences as operators
+# ---------------------------------------------------------------------------
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_SCANS = {}
+
+
+def _scan_op(name: str, body):
+    """Register ``body`` (six tensors -> (y like the first, the final state
+    like the last)) as the operator ``repro_torch::<name>``: its kernel is
+    the Python loop on any device, its fake kernel gives the output shapes
+    at once.  ``<name>_grad`` is its backward with a fake kernel only: a
+    recurrence is one op of known shapes in ``FakeTensorMode`` (the
+    dry-run), as XLA's while loop is one op.  ``SCAN_FLOPS`` gives a time
+    step's products, which the dry-run registers with
+    ``FlopCounterMode``'s formulas."""
+    _LIB.define(f"{name}(Tensor a, Tensor b, Tensor c, Tensor d, Tensor e, "
+                f"Tensor h) -> (Tensor, Tensor)")
+    _LIB.impl(name, body, "CompositeExplicitAutograd")
+    _LIB.define(f"{name}_grad(Tensor a, Tensor b, Tensor c, Tensor d, "
+                f"Tensor e, Tensor h, Tensor gy, Tensor gh) -> Tensor[]")
+    torch.library.register_fake(f"repro_torch::{name}", lambda *t: (
+        t[0].new_empty(t[0].shape), t[-1].new_empty(t[-1].shape)))
+    torch.library.register_fake(f"repro_torch::{name}_grad", lambda *t: [
+        x.new_empty(x.shape) for x in t[:6]])
+    _SCANS[name] = (getattr(torch.ops.repro_torch, name),
+                    getattr(torch.ops.repro_torch, f"{name}_grad"), body)
+
+
+class _Scan(torch.autograd.Function):
+    """A registered recurrence under autograd: the forward is the
+    operator; the backward recomputes the loop with autograd on and takes
+    its gradients (on fake tensors: the ``_grad`` operator's shapes)."""
+
+    @staticmethod
+    def forward(ctx, name, *inputs):
+        ctx.name = name
+        ctx.save_for_backward(*inputs)
+        return _SCANS[name][0](*inputs)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        _, grad, body = _SCANS[ctx.name]
+        inputs = ctx.saved_tensors
+        if is_fake(inputs[0]):
+            return (None, *grad(*inputs, gy, gh))
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(inputs, ctx.needs_input_grad[1:])]
+        wrt = [t for t in ins if t.requires_grad]
+        with torch.enable_grad():
+            y, h = body(*ins)
+        got = iter(torch.autograd.grad((y, h), wrt, (gy, gh),
+                                       allow_unused=True))
+        return (None, *(next(got) if t.requires_grad else None
+                        for t in ins))
+
+
+def _ssd(n_heads, xf, bf, cf, dt, decay, h):
+    """``_ssd_scan`` on each rank's local batch rows and heads when its
+    inputs are DTensors (``layers.local_rows``): the recurrence is
+    independent across both and runs there as plain tensor ops."""
+    return local_rows(lambda *t: _Scan.apply("ssd_scan", *t),
+                      [(xf, 0, 2), (bf, 0, None), (cf, 0, None),
+                       (dt, 0, 2), (decay, 0, 2), (h, 0, 1)],
+                      [(0, 2), (0, 1)], model_size=n_heads)
+
+
 def mamba_forward(p, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward: x [B, S, d] -> [B, S, d]."""
     bsz, s, _ = x.shape
@@ -105,12 +186,7 @@ def mamba_forward(p, x: torch.Tensor) -> torch.Tensor:
     decay = torch.exp(-torch.exp(p.a_log)[None, None, :] * dt)   # [B,S,H]
     xf, bf, cf = xh.float(), b.float(), c.float()
     h = torch.zeros((bsz, nh, dh, ds), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(s):
-        h = h * decay[:, t, :, None, None] + _ssd_update(xf[:, t], bf[:, t],
-                                                         dt[:, t])
-        ys.append((h @ cf[:, t, None, :, None])[..., 0])
-    y = torch.stack(ys, 1)                                   # [B,S,nh,dh]
+    y, _ = _ssd(nh, xf, bf, cf, dt, decay, h)               # [B,S,nh,dh]
     y = y + xf * p.d_skip[None, None, :, None]
     y = y.reshape(bsz, s, nh * dh) * F.silu(z.float())
     return mm(y.to(x.dtype), p.w_out)
@@ -137,10 +213,9 @@ def mamba_decode_step(p, x: torch.Tensor, state: MambaState
     xt = _silu(conv).reshape(bsz, nh, dh).float()
     dtt = _softplus(dt[:, 0].float() + p.dt_bias)
     decay = torch.exp(-torch.exp(p.a_log)[None, :] * dtt)
-    h = state.h * decay[:, :, None, None] + _ssd_update(
-        xt, b[:, 0].float(), dtt)
-    y = (h @ c[:, 0].float()[:, None, :, None])[..., 0]
-    y = y + xt * p.d_skip[None, :, None]
+    y, h = _ssd(nh, xt[:, None], b.float(), c.float(), dtt[:, None],
+                decay[:, None], state.h)
+    y = y[:, 0] + xt * p.d_skip[None, :, None]
     y = y.reshape(bsz, 1, nh * dh) * F.silu(z.float())
     return mm(y.to(x.dtype), p.w_out), MambaState(h=h, conv=win[:, 1:, :])
 
@@ -189,6 +264,19 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def _wkv_scan(r, k, v, w, bonus, state):
+    """The wkv recurrence over time: r, k, v, w [B,S,nh,dh], bonus [nh,dh],
+    state [B,nh,dh,dh] -> (y [B,S,nh,dh], final state).  Run on each
+    rank's local batch rows and heads on DTensors (``layers.local_rows``)."""
+    bonus = bonus[None, :, :, None]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append((r[:, t, :, None, :] @ (state + bonus * kv))[..., 0, :])
+        state = state * w[:, t, :, :, None] + kv
+    return torch.stack(ys, 1), state
+
+
 def rwkv_time_mix(p, x: torch.Tensor, x_prev: torch.Tensor,
                   s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d]; returns (out [B,S,d], final state [B,H,dh,dh])."""
@@ -208,14 +296,10 @@ def rwkv_time_mix(p, x: torch.Tensor, x_prev: torch.Tensor,
     wdec = mm(mix("w"), p.w_decay).float() + p.decay_bias
     w = torch.exp(-torch.exp(wdec)).reshape(bsz, s, nh, dh)
 
-    bonus = p.bonus[None, :, :, None]
-    state = s0
-    ys = []
-    for t in range(s):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
-        ys.append((r[:, t, :, None, :] @ (state + bonus * kv))[..., 0, :])
-        state = state * w[:, t, :, :, None] + kv
-    y = torch.stack(ys, 1)                                   # [B,S,nh,dh]
+    y, state = local_rows(
+        lambda *t: _Scan.apply("wkv_scan", *t),
+        [(r, 0, 2), (k, 0, 2), (v, 0, 2), (w, 0, 2), (p.bonus, None, 0),
+         (s0, 0, 1)], [(0, 2), (0, 1)], model_size=nh)      # [B,S,nh,dh]
     # group norm over heads (ln_x) + gate
     y = y * torch.rsqrt(torch.mean(y * y, -1, keepdim=True) + 1e-5)
     y = (y.reshape(bsz, s, d) * p.ln_x * g).to(x.dtype)
@@ -237,3 +321,11 @@ def rwkv_init_state(p, batch: int, d: int) -> RWKVState:
         s=torch.zeros((batch, nh, dh, dh), dtype=torch.float32, device=dev),
         x_tm=torch.zeros((batch, d), dtype=torch.bfloat16, device=dev),
         x_cm=torch.zeros((batch, d), dtype=torch.bfloat16, device=dev))
+
+
+_scan_op("ssd_scan", _ssd_scan)
+_scan_op("wkv_scan", _wkv_scan)
+# a time step's products from the shapes of the first input and the state:
+# ssd h @ c, [B, nh, dh, ds] x [ds]; wkv r @ (...), [B, nh, dh] x [dh, dh]
+SCAN_FLOPS = {"ssd_scan": lambda x, h: 2 * x[0] * h[1] * h[2] * h[3],
+              "wkv_scan": lambda r, h: 2 * r[0] * h[1] * h[2] * h[3]}

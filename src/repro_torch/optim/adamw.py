@@ -38,9 +38,13 @@ def _tree(params: Union[nn.Module, Tree]) -> Tree:
 
 
 def init_opt_state(params: Union[nn.Module, Tree]) -> OptState:
-    """Zero f32 moments on each parameter's device; step 0."""
+    """Zero f32 moments on each parameter's device, laid out as the
+    parameter (a DTensor parameter's moments are DTensors on its mesh with
+    its placements); step 0, a plain 0-d tensor."""
     params = _tree(params)
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format,
+                                 requires_grad=False)
              for k, p in params.items()}
     dev = next(iter(params.values())).device
     return OptState(m=zeros,

@@ -12,7 +12,7 @@ package reduces over a named mesh axis inside ``shard_map``, this reduces
 over a ``torch.distributed`` process group (the default group when
 ``group`` is None); a world of one computes what the JAX function computes
 on a one-wide axis.  The reduction over NCCL across several cards is
-ROADMAP.md Queue 1 item 14.
+ROADMAP.md Queue 1 item 14b.
 """
 from __future__ import annotations
 

@@ -16,8 +16,14 @@ Checkpoints hold ``{"params", "opt"}`` in the JAX package's layout
 run of either package resumes from the other's.  The step is not compiled
 (the reference's ``_compile_step`` has no counterpart: the port does not
 jit).  ``run`` restores the signal handlers it found when it returns.
-A ``mesh`` or ``shardings`` is the multi-card layer (ROADMAP.md Queue 1
-item 14).
+
+``mesh`` and ``shardings`` are taken as the reference takes them: it keeps
+``self.mesh`` and drops ``shardings``, and its step does not shard (the
+parameters are made and restored unsharded).  So does this one, which
+also keeps ``self.shardings`` after checking that every leaf is a
+``sharding.NamedSharding``.  Sharded training goes through
+``make_train_step`` on DTensor parameters (``sharding.shard_tree``,
+``CheckpointManager.restore(shardings=)``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from .. import convert
 from .. import device as _device
 from ..ckpt import CheckpointManager
+from ..ckpt.manager import check_shardings
 from ..configs.base import ModelConfig
 from ..data import DataPipeline
 from ..models import lm
@@ -55,10 +62,10 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  pipeline: DataPipeline, mesh=None, shardings=None,
                  device="cuda"):
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(
-                "a Trainer on a mesh (mesh=, shardings=) is the multi-card "
-                "layer: ROADMAP.md Queue 1 item 14")
+        if shardings is not None:
+            check_shardings(shardings)
+        self.mesh = mesh
+        self.shardings = shardings
         self.cfg = cfg
         self.tcfg = tcfg
         self.pipe = pipeline

@@ -76,5 +76,8 @@ def test_every_port_module_is_checked():
                  "serve/replay.py", "serve/api.py", "optim/adamw.py",
                  "optim/__init__.py", "data/pipeline.py", "ckpt/manager.py",
                  "train/trainer.py", "launch/train.py",
-                 "optim/compress.py", "models/moe.py", "models/ssm.py"):
+                 "optim/compress.py", "models/moe.py", "models/ssm.py",
+                 "sharding/__init__.py", "sharding/compat.py",
+                 "sharding/rules.py", "launch/mesh.py",
+                 "launch/roofline.py", "launch/dryrun.py"):
         assert must in names

@@ -155,8 +155,13 @@ def test_checkpoint_integrity_and_gc(tmp_path):
 
 def test_restore_onto_a_device(tmp_path):
     """The counterpart of the reference's elastic restore: leaves onto a
-    device (the CPU here); a mesh (``shardings``) is item 14; the card
-    without CUDA raises."""
+    device (the CPU here), and with ``shardings`` onto a mesh (a gloo host
+    mesh of one: DTensors with the specs' placements, equal to the saved
+    leaves); the card without CUDA raises."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import NamedSharding, P
     mgr = CheckpointManager(str(tmp_path))
     tree = {"w": torch.arange(16.0).reshape(4, 4),
             "h": torch.arange(6, dtype=torch.bfloat16)}
@@ -165,8 +170,18 @@ def test_restore_onto_a_device(tmp_path):
     for k, t in tree.items():
         assert back[k].device.type == "cpu" and back[k].dtype == t.dtype
         assert torch.equal(back[k], t)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mgr.restore(tree, shardings={"w": None})
+    mesh = make_host_mesh(device="cpu")
+    try:
+        sh = {"w": NamedSharding(mesh, P("data", "model")),
+              "h": NamedSharding(mesh, P(None))}
+        back = mgr.restore(tree, shardings=sh)
+        assert back["w"].placements == (Shard(0), Shard(1))
+        assert back["h"].placements == (Replicate(), Replicate())
+        for k, t in tree.items():
+            assert isinstance(back[k], DTensor) and back[k].dtype == t.dtype
+            assert torch.equal(back[k].full_tensor(), t)
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             mgr.restore(tree, device="cuda")
@@ -363,12 +378,23 @@ def test_trainer_default_device_needs_cuda(tmp_path):
 
 
 def test_mesh_and_shardings_are_item_14(tmp_path):
-    for kw in ({"mesh": object()}, {"shardings": {}}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            Trainer(TINY, _tcfg(tmp_path), None, device="cpu", **kw)
+    """Item 14 (its one-card part, 14a) is ported; the name stays so that
+    the test keeps its id.  As the reference, the ``Trainer`` keeps its
+    ``mesh`` and takes ``shardings`` without sharding its step; a
+    ``shardings`` leaf that is no ``NamedSharding`` raises ``TypeError``
+    there and in ``CheckpointManager.restore``."""
+    from repro_torch.sharding import NamedSharding, P, abstract_mesh
+    mesh = abstract_mesh((1, 1), ("data", "model"))
+    tr = Trainer(TINY, _tcfg(tmp_path), None, device="cpu", mesh=mesh,
+                 shardings={"w": NamedSharding(mesh, P(None))})
+    assert tr.mesh is mesh and tr.shardings["w"].spec == P(None)
+    for bad in ({"w": "data"}, {"w": None}, {"w": P("data")}):
+        with pytest.raises(TypeError, match="NamedSharding"):
+            Trainer(TINY, _tcfg(tmp_path), None, device="cpu",
+                    shardings=bad)
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         mgr.restore({"w": torch.zeros(2)}, shardings={"w": "data"})
 
 
