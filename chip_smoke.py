@@ -3621,6 +3621,99 @@ def profile_decode(eng, dev, steps: int = 4) -> dict:
             "top": [(n[:60], round(t / steps, 4)) for n, t in top]}
 
 
+def run_shards_6c(exp, fused, rops, spec6c, host_6c, dev, cache) -> dict:
+    """Phase 6c's leg "bucketed, two shards": each bucket of two groups
+    split into two shards of one group, as ``ExecPlan(devices=2)`` splits
+    it on two cards -- there through that plan, on one card through the
+    engine's `_drive_shards` with both shards on it -- bitwise equal to 6c's
+    host leg (``host_6c``), every shard's super-steps under the sync
+    check and its ``llc_rounds`` launches counted apart; then
+    ``ExecPlan(devices=<cards> + 1)`` must raise before any work."""
+    import torch
+    n_cards = torch.cuda.device_count()
+    drive_b, step_b = fused.drive_lanes_bucketed, fused._superstep_bucket
+    buckets, calls, by_shard = [], [0], [0, 0]
+
+    def recorded(groups, devices=None, staged=None, pipeline=None):
+        buckets.append([g[0].mix for g in groups])
+        if n_cards >= 2:
+            return drive_b(groups, devices=devices, staged=staged,
+                           pipeline=pipeline)
+        if len(groups) != 2:
+            raise AssertionError(f"phase 6c two shards: a bucket of "
+                                 f"{len(groups)} groups")
+        return fused._drive_shards(groups, [dev, dev], staged=staged,
+                                   pipeline=pipeline)
+
+    chk = SyncChecked(fused, "_superstep_bucket")
+
+    def counted(*a):
+        # the engine enqueues the shards in order, every super-step
+        k, before = calls[0] % 2, rops.rounds.launches
+        calls[0] += 1
+        out = chk(*a)
+        by_shard[k] += rops.rounds.launches - before
+        return out
+
+    fused._superstep_bucket = counted
+    fused.drive_lanes_bucketed = recorded
+    mapping = ("shard i on cuda:i (ExecPlan(devices=2))" if n_cards >= 2
+               else f"both shards on {dev} (one card: _drive_shards)")
+    fused.reset_counts()
+    fused.reset_phase_times()
+    rops.rounds.launches = 0
+    t0 = time.time()
+    try:
+        rs = exp.run(spec6c, plan=exp.ExecPlan(
+            engine="bucketed", pipeline=True, cache=False, max_lanes=3,
+            fit_engine="bucketed", devices=2 if n_cards >= 2 else None),
+            device=dev)
+        torch.cuda.synchronize()
+    finally:
+        fused.drive_lanes_bucketed, fused._superstep_bucket = drive_b, step_b
+    wall = time.time() - t0
+    c = fused.counts()
+    got = [dataclasses.asdict(r) for r in rs.results()]
+    log(f"[bucketed] phase 6c bucketed, two shards: {mapping}; wall "
+        f"{wall:.1f} s, shards {c['bucket_shards']}, super-steps "
+        f"{c['bucket_supersteps']} ({chk.calls} shard super-steps under "
+        f"set_sync_debug_mode('error')), llc_rounds launches by shard "
+        f"{by_shard} (total {rops.rounds.launches}), counts {c}; phase "
+        "split " + ", ".join(f"{k} {v:.3f}"
+                             for k, v in fused.phase_times().items()))
+    if got != host_6c:
+        raise AssertionError("phase 6c two shards: differs from the host "
+                             "engine")
+    if (len(buckets) != 2 or c["bucket_shards"] != 2 * len(buckets)
+            or c["bucket_demotions"] or min(by_shard) <= 0):
+        raise AssertionError(f"phase 6c two shards: {c}, launches by shard "
+                             f"{by_shard}, buckets {buckets}")
+    # a count above the visible cards: refused before anything is staged,
+    # cached or launched
+    too_many = n_cards + 1
+    os.environ["REPRO_CACHE"] = cache + "_shards_refused"
+    shutil.rmtree(os.environ["REPRO_CACHE"], ignore_errors=True)
+    fused.reset_counts()
+    rops.rounds.launches = 0
+    try:
+        exp.run(spec6c, plan=exp.ExecPlan(engine="bucketed", max_lanes=3,
+                                          fit_engine="bucketed",
+                                          devices=too_many), device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"phase 6c: devices={too_many} ran")
+    left = [f for _d, _s, fs in os.walk(os.environ["REPRO_CACHE"])
+            for f in fs]
+    if any(fused.counts().values()) or rops.rounds.launches or left:
+        raise AssertionError(f"phase 6c: devices={too_many} did work before "
+                             f"it was refused: {fused.counts()}, "
+                             f"{rops.rounds.launches} launches, {left}")
+    log(f"[bucketed] phase 6c two shards: bitwise equal to the host engine; "
+        f"devices={too_many} refused before any work: {refused}")
+    return {"wall": wall, "by_shard": by_shard, "mapping": mapping}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4148,6 +4241,7 @@ def main() -> int:
         f"against the per-group fused engine's "
         f"{launches6c['fused']}; walls " + ", ".join(
             f"{k} {v:.1f} s" for k, v in walls6c.items()))
+    run_shards_6c(exp, fused, rops, spec6c, runs6c["host"], dev, cache)
     # the forced faults on a small case (two groups of one bucket)
     small = [sweep.SweepPoint("config1", "moti1", policies.get(n),
                               sim.SimParams(n_inputs=1, max_epochs=e,

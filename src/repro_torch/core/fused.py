@@ -41,7 +41,10 @@ stream arrays read by (group, element) gathers -- so an epoch is one
 freezes on its committed carry (the freeze above), the shared capacity
 escalates, and past the cap only the offending group leaves through
 ``drive_lanes_fused``.  Results equal the per-group engines bitwise
-(tests/test_torch_bucketed.py).
+(tests/test_torch_bucketed.py).  With ``devices > 1`` a bucket's groups
+split into shards, one a card, as the JAX package's ``shard_map`` of the
+group axis: each shard is a flat lane batch of its own, and the shards
+share nothing but the round capacity (tests/test_torch_shards.py).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.common import on_card
 from ..kernels.llc_rounds import ops as rounds_ops
 from . import dram as dram_mod
 from . import dramsched
@@ -80,15 +84,18 @@ PIPELINE_DEFAULT = os.environ.get("REPRO_BUCKET_PIPELINE", "1") != "0"
 
 # Counts since the last reset: drive_lanes_fused's super-steps committed on
 # the device, capacity escalations, host stretches and their epochs; the
-# bucketed engine's super-steps, escalations and demoted groups.
+# bucketed engine's super-steps (one a bucket, whatever its shards),
+# escalations, demoted groups and shards (summed over its calls).
 _COUNTS = {"supersteps": 0, "escalations": 0, "host_stretches": 0,
            "host_epochs": 0, "bucket_supersteps": 0,
-           "bucket_escalations": 0, "bucket_demotions": 0}
+           "bucket_escalations": 0, "bucket_demotions": 0,
+           "bucket_shards": 0}
 
 # Seconds of the bucketed engine, accumulated across calls: stage_s
 # (staging and the carry, host clock), dispatch_s (enqueueing super-steps,
 # host clock; on the CPU the work itself), device_s (CUDA events from a
-# super-step's first op to the end of its copy to the host; 0 on the CPU)
+# super-step's first op to the end of its copy to the host, summed over a
+# bucket's shards; 0 on the CPU)
 # and writeback_s (histories and carry into the Lanes, host clock).
 _PHASES = {"stage_s": 0.0, "dispatch_s": 0.0, "device_s": 0.0,
            "writeback_s": 0.0}
@@ -767,15 +774,17 @@ def _i32(a: np.ndarray) -> np.ndarray:
 
 class _Staged:
     """What ``drive_lanes_fused`` holds between super-steps: the static dims,
-    the shared constants and the per-lane tables, on the lanes' device.
-    ``pads`` (``bucket_pads``) sizes the arrays to a bucket's maxima so
-    that the groups' arrays stack; ``stale`` marks tables that an online
-    retrain swapped (the staging cache then stages afresh)."""
+    the shared constants and the per-lane tables, on ``device`` (default:
+    the lanes'; a bucket's shard stages on its card).  ``pads``
+    (``bucket_pads``) sizes the arrays to a bucket's maxima so that the
+    groups' arrays stack; ``stale`` marks tables that an online retrain
+    swapped (the staging cache then stages afresh)."""
 
     def __init__(self, lanes: List[Lane], k_epochs: int, max_rounds: int,
-                 pads: Optional[Tuple[int, int, int]] = None):
+                 pads: Optional[Tuple[int, int, int]] = None,
+                 device: Optional[torch.device] = None):
         lane0 = lanes[0]
-        dev = self.device = lane0.device
+        dev = self.device = lane0.device if device is None else device
         p, dram, et = lane0.p, lane0.dram, lane0.et
         profiles = lane0.profiles
         n_cores = lane0.n_cores
@@ -933,11 +942,13 @@ def bucket_pads(groups: List[List[Lane]]) -> Tuple[int, int, int]:
 
 def stage_group(lanes: List[Lane], k_epochs: int = DEFAULT_SUPERSTEP,
                 max_rounds: int = DEFAULT_MAX_ROUNDS,
-                pads: Optional[Tuple[int, int, int]] = None) -> _Staged:
+                pads: Optional[Tuple[int, int, int]] = None,
+                device: Optional[torch.device] = None) -> _Staged:
     """One group's staged device constants (what the sweep's staging cache
-    holds); the time lands in the ``stage_s`` phase."""
+    holds) on ``device`` (default: the lanes'); the time lands in the
+    ``stage_s`` phase."""
     t0 = time.perf_counter()
-    staged = _Staged(lanes, k_epochs, max_rounds, pads=pads)
+    staged = _Staged(lanes, k_epochs, max_rounds, pads=pads, device=device)
     _PHASES["stage_s"] += time.perf_counter() - t0
     return staged
 
@@ -1123,7 +1134,9 @@ def drive_lanes_fused(lanes: List[Lane], states=None,
                       k_epochs: int = DEFAULT_SUPERSTEP,
                       max_rounds: int = DEFAULT_MAX_ROUNDS) -> None:
     """Drive a geometry-compatible batch of lanes to completion through
-    the fused engine on the lanes' device, super-step by super-step.
+    the fused engine, super-step by super-step, on the device of
+    ``states`` when given (a group demoted from a bucket's shard stays on
+    the shard's card), else on the lanes'.
 
     Equal to ``sim.drive_lane`` per lane (integers bitwise, floats within
     rtol 1e-6 and in practice bitwise); a super-step that overflows the
@@ -1133,7 +1146,8 @@ def drive_lanes_fused(lanes: List[Lane], states=None,
     """
     assert all(lane_supported(lane) for lane in lanes)
     max_epochs = int(lanes[0].p.max_epochs)
-    staged = _Staged(lanes, k_epochs, max_rounds)
+    staged = _Staged(lanes, k_epochs, max_rounds,
+                     device=None if states is None else states.tags.device)
     if states is None:
         states = llc_mod.stack_states(staged.dims.cfg, len(lanes),
                                       staged.device)
@@ -1287,12 +1301,35 @@ def _lanes_slice(tup, lo: int, hi: int, axis: int = 0):
                        for x in tup))
 
 
-def one_card(devices: Optional[int]) -> None:
-    """The bucketed engine's ``devices``: None or 1 is the one card."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}: the bucketed engine runs on one card; "
-            "sharding its groups over cards is ROADMAP.md Queue 1 item 14b")
+def check_devices(devices: Optional[int], dev: torch.device) -> None:
+    """Raise ``ValueError`` if ``devices`` asks for more cards than are
+    visible (on the CPU any count is shards on the CPU).  The JAX package
+    builds a smaller mesh instead; the port has no silent fallback."""
+    if dev.type == "cuda" and devices:
+        visible = torch.cuda.device_count()
+        if devices > visible:
+            raise ValueError(f"devices={devices}: only {visible} CUDA "
+                             f"device(s) visible")
+
+
+def shard_devices(n_groups: int, devices: Optional[int],
+                  dev: torch.device) -> List[torch.device]:
+    """The devices of a bucket of ``n_groups`` groups, one a shard.
+
+    ``devices`` of None counts the visible cards on ``"cuda"`` and is 1 on
+    the CPU (the JAX package's default: every visible device).  The
+    bucket shards only when the count is above 1 and divides the groups
+    (``src/repro/core/fused.py:1609-1610``), else it runs whole on ``dev``.
+    On ``"cuda"`` shard i lives on ``cuda:i``; on the CPU every shard is
+    the CPU (the stand-in for JAX's forced host devices)."""
+    check_devices(devices, dev)
+    n_dev = devices or (torch.cuda.device_count() if dev.type == "cuda"
+                        else 1)
+    if n_dev <= 1 or n_groups % n_dev:
+        return [dev]
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(n_dev)]
+    return [dev] * n_dev
 
 
 def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
@@ -1301,43 +1338,74 @@ def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
                          devices: Optional[int] = None,
                          staged: Optional[List[_Staged]] = None,
                          pipeline: Optional[bool] = None) -> None:
-    """Drive lane groups of equal ``bucket_key`` to completion as ONE flat
-    lane batch of G*L lanes on the lanes' device: one ``llc_rounds``
-    launch an epoch for the whole bucket.
+    """Drive lane groups of equal ``bucket_key`` to completion as flat
+    lane batches: one ``llc_rounds`` launch an epoch a shard.
 
-    Each group's results equal ``drive_lanes_fused`` on the group alone
-    bitwise (tests/test_torch_bucketed.py): every lane computes the same
-    values as in its group's batch, and exactly the epochs
-    ``drive_lanes_fused`` would commit are committed.  Progress is tracked
-    from the super-steps' outputs alone -- one host read a super-step --
-    and the carry stays on the device until the run ends or a group
-    demotes.
-    With ``pipeline`` (default ``REPRO_BUCKET_PIPELINE``, on) and no
-    online-LERN lane, super-step N+1 is enqueued before N's write-back,
-    which reads N's outputs from pinned buffers behind an event; stream
-    order keeps the carry's hand-over exact (the JAX package donates the
-    carry instead).
+    ``devices`` shards the groups over cards as the JAX package's
+    ``shard_map`` does (``shard_devices``): each shard takes a contiguous
+    slice of the groups and runs it as one flat lane batch on its card,
+    with its own staged constants, carry and stop epochs; the shards share
+    nothing but the round capacity.  Every group's results equal
+    ``drive_lanes_fused`` on the group alone bitwise, whatever the shards
+    (tests/test_torch_bucketed.py, tests/test_torch_shards.py): each lane
+    computes the same values as in its group's batch, and exactly the
+    epochs ``drive_lanes_fused`` would commit are committed.  A ``devices``
+    above the visible cards raises ``ValueError`` before any work.
+
+    Progress is tracked from the super-steps' outputs alone -- one host
+    read a shard and super-step, every shard's super-step enqueued before
+    any is read -- and the carries stay on the cards until the run ends
+    or a group demotes.  With ``pipeline`` (default
+    ``REPRO_BUCKET_PIPELINE``, on) and no online-LERN lane, super-step N+1
+    is enqueued before N's write-back, which reads N's outputs from pinned
+    buffers behind an event on each shard's card; stream order keeps the
+    carry's hand-over exact (the JAX package donates the carry instead,
+    and only unsharded).
 
     Overflow never rolls back: an overflowing lane freezes on its committed
     carry; the shared capacity doubles first (up to ``MAX_ROUNDS_CAP``),
     then only the offending groups leave, each from its frozen carry
-    through ``drive_lanes_fused`` (host fallback and all).  ``devices`` of
-    None or 1 runs on the one card; more raises ``NotImplementedError``
-    before any work.  ``staged`` reuses staged constants (the sweep's
-    staging cache), built with this bucket's ``bucket_pads``."""
-    one_card(devices)
+    through ``drive_lanes_fused`` on its shard's card (host fallback and
+    all).  ``staged`` reuses staged constants (the sweep's staging cache),
+    built with this bucket's ``bucket_pads`` on each group's shard
+    device."""
+    dev = groups[0][0].device
+    _drive_shards(groups, shard_devices(len(groups), devices, dev), states,
+                  k_epochs, max_rounds, staged, pipeline)
+
+
+class _Shard:
+    """One shard of a bucket: groups ``lo:hi`` as a flat lane batch on
+    ``dev`` (constants, per-lane tables, carry)."""
+
+    def __init__(self, dev, lo, hi, sh, lc, carry):
+        self.dev, self.lo, self.hi = dev, lo, hi
+        self.sh, self.lc, self.carry = sh, lc, carry
+
+
+def _drive_shards(groups: List[List[Lane]], devs: List[torch.device],
+                  states=None, k_epochs: int = DEFAULT_SUPERSTEP,
+                  max_rounds: int = DEFAULT_MAX_ROUNDS,
+                  staged: Optional[List[_Staged]] = None,
+                  pipeline: Optional[bool] = None) -> None:
+    """``drive_lanes_bucketed`` on the shard devices ``devs``, given
+    explicitly (their count divides the groups; a device may repeat, which
+    only a check of the shard machinery on one card wants)."""
     assert groups and len({bucket_key(g) for g in groups}) == 1
     for g in groups:
         assert all(lane_supported(lane) for lane in g)
     n_groups, n_l = len(groups), len(groups[0])
-    dev = groups[0][0].device
+    assert n_groups % len(devs) == 0, (n_groups, devs)
+    per = n_groups // len(devs)
     max_epochs = [int(g[0].p.max_epochs) for g in groups]
     if pipeline is None:
         pipeline = PIPELINE_DEFAULT
     if staged is None:
         pads = bucket_pads(groups)
-        staged = [stage_group(g, k_epochs, max_rounds, pads=pads)
-                  for g in groups]
+        staged = [stage_group(g, k_epochs, max_rounds, pads=pads,
+                              device=devs[i // per])
+                  for i, g in enumerate(groups)]
+    assert all(s.device == devs[i // per] for i, s in enumerate(staged))
     t0 = time.perf_counter()
     dims = staged[0].dims
     # bucket-mates agree on every static field but the incidental lane0
@@ -1346,14 +1414,20 @@ def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
     assert all(dataclasses.replace(s.dims, cfg=dims.cfg) == dims
                and llc_mod.geometry_key(s.dims.cfg)
                == llc_mod.geometry_key(dims.cfg) for s in staged)
-    sh = _bucket_consts([s.sh for s in staged], n_l)
-    lc = _stack_trees([s.lc for s in staged])
-    if states is None:
-        st = llc_mod.stack_states(dims.cfg, n_groups * n_l, dev)
-    else:
-        st = _stack_trees(list(states))
-    carry = _init_carry([lane for g in groups for lane in g], st,
-                        dims.n_inputs)
+    shards = []
+    for k, sdev in enumerate(devs):
+        lo, hi = k * per, (k + 1) * per
+        if states is None:
+            st = llc_mod.stack_states(dims.cfg, per * n_l, sdev)
+        else:
+            st = _stack_trees([llc_mod.LLCState(*(x.to(sdev) for x in s))
+                               for s in states[lo:hi]])
+        shards.append(_Shard(
+            sdev, lo, hi, _bucket_consts([s.sh for s in staged[lo:hi]], n_l),
+            _stack_trees([s.lc for s in staged[lo:hi]]),
+            _init_carry([lane for g in groups[lo:hi] for lane in g], st,
+                        dims.n_inputs)))
+    _COUNTS["bucket_shards"] += len(shards)
     _PHASES["stage_s"] += time.perf_counter() - t0
     # enqueueing ahead needs constant stop epochs: an online-LERN boundary
     # needs a host refit (and a table upload) before the next super-step
@@ -1386,21 +1460,24 @@ def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
         return stop
 
     def dispatch():
-        nonlocal carry
         stops = [next_stop(i) for i in range(n_groups)]
         before = [list(e) for e in epochs]
         t = time.perf_counter()
-        stop = torch.tensor(np.repeat(stops, n_l), dtype=torch.int64,
-                            device=dev)
-        start = None
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        carry, ys = _superstep_bucket(dims, sh, lc, carry, stop)
-        host, done = _fetch(ys)
+        reads = []
+        for sd in shards:        # every shard enqueued before any is read
+            with on_card(sd.dev):
+                stop = torch.tensor(np.repeat(stops[sd.lo:sd.hi], n_l),
+                                    dtype=torch.int64, device=sd.dev)
+                start = None
+                if sd.dev.type == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                sd.carry, ys = _superstep_bucket(dims, sd.sh, sd.lc,
+                                                 sd.carry, stop)
+                reads.append((sd, start) + _fetch(ys))
         _COUNTS["bucket_supersteps"] += 1
         _PHASES["dispatch_s"] += time.perf_counter() - t
-        return host, start, done, before
+        return reads, before
 
     inflight: list = []
     depth = 2 if speculate else 1
@@ -1431,65 +1508,78 @@ def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
                 dims = dataclasses.replace(
                     dims, max_rounds=min(dims.max_rounds * 2,
                                          MAX_ROUNDS_CAP))
-                carry = carry._replace(
-                    overflow=torch.zeros_like(carry.overflow))
+                for sd in shards:
+                    sd.carry = sd.carry._replace(
+                        overflow=torch.zeros_like(sd.carry.overflow))
                 overflow_pending.clear()
                 _COUNTS["bucket_escalations"] += 1
                 continue
             # ... and past the cap demote only the offending groups: write
             # their carry back and hand them to drive_lanes_fused from
-            # their frozen state
-            host_c = _numpy(carry._replace(st=None))
-            for i in sorted(overflow_pending):
-                if not live[i]:
+            # their frozen state, on their shard's card
+            for sd in shards:
+                gone = [i for i in sorted(overflow_pending)
+                        if sd.lo <= i < sd.hi and live[i]]
+                if not gone:
                     continue
-                live[i] = False
-                lo, hi = i * n_l, (i + 1) * n_l
-                _write_back_carry(groups[i], _lanes_slice(host_c, lo, hi),
-                                  skip=[False] * n_l)
-                # a deferred refit touches only the due lane's own tables
-                # (it holds at its boundary): run it before the replay
-                for j in sorted(due[i]):
-                    groups[i][j]._online_retrain()
-                due[i].clear()
-                st_i = llc_mod.LLCState(*(x[lo:hi].clone()
-                                          for x in carry.st))
-                _COUNTS["bucket_demotions"] += 1
-                drive_lanes_fused(groups[i], states=st_i,
-                                  k_epochs=dims.k_epochs,
-                                  max_rounds=dims.max_rounds)
-            dead = torch.tensor(np.repeat([not a for a in live], n_l),
-                                device=dev)
-            carry = carry._replace(
-                active=carry.active & ~dead,
-                overflow=torch.zeros_like(carry.overflow))
+                host_c = _numpy(sd.carry._replace(st=None))
+                for i in gone:
+                    live[i] = False
+                    lo = (i - sd.lo) * n_l
+                    hi = lo + n_l
+                    _write_back_carry(groups[i],
+                                      _lanes_slice(host_c, lo, hi),
+                                      skip=[False] * n_l)
+                    # a deferred refit touches only the due lane's own
+                    # tables (it holds at its boundary): run it before the
+                    # replay
+                    for j in sorted(due[i]):
+                        groups[i][j]._online_retrain()
+                    due[i].clear()
+                    st_i = llc_mod.LLCState(*(x[lo:hi].clone()
+                                              for x in sd.carry.st))
+                    _COUNTS["bucket_demotions"] += 1
+                    with on_card(sd.dev):
+                        drive_lanes_fused(groups[i], states=st_i,
+                                          k_epochs=dims.k_epochs,
+                                          max_rounds=dims.max_rounds)
+                dead = torch.tensor(
+                    np.repeat([not a for a in live[sd.lo:sd.hi]], n_l),
+                    device=sd.dev)
+                sd.carry = sd.carry._replace(active=sd.carry.active & ~dead)
+            for sd in shards:
+                sd.carry = sd.carry._replace(
+                    overflow=torch.zeros_like(sd.carry.overflow))
             overflow_pending.clear()
             continue
-        host, start, done, before = inflight.pop(0)
-        if done is not None:
-            done.synchronize()     # the one read of the super-step
-            _PHASES["device_s"] += start.elapsed_time(done) / 1e3
+        reads, before = inflight.pop(0)
+        for _sd, start, _host, done in reads:
+            if done is not None:
+                done.synchronize()     # the one read of the shard's step
+                _PHASES["device_s"] += start.elapsed_time(done) / 1e3
         t = time.perf_counter()
-        y = _numpy(host)
-        for i in range(n_groups):
-            if not live[i]:
-                continue
-            y_i = _lanes_slice(y, i * n_l, (i + 1) * n_l, axis=1)
-            _write_back_steps(groups[i], y_i)
-            for j in range(n_l):
-                epochs[i][j] += int(y_i.active[:, j].sum())
-                alive[i][j] = bool(y_i.alive[-1, j])
-                r = groups[i][j]._retrain_every
-                if (r is not None and epochs[i][j] > before[i][j]
-                        and epochs[i][j] % r == 0):
-                    due[i].add(j)
-            if y_i.ovf[-1].any():
-                overflow_pending.add(i)
+        for sd, _start, host, _done in reads:
+            y = _numpy(host)
+            for i in range(sd.lo, sd.hi):
+                if not live[i]:
+                    continue
+                lo = (i - sd.lo) * n_l
+                y_i = _lanes_slice(y, lo, lo + n_l, axis=1)
+                _write_back_steps(groups[i], y_i)
+                for j in range(n_l):
+                    epochs[i][j] += int(y_i.active[:, j].sum())
+                    alive[i][j] = bool(y_i.alive[-1, j])
+                    r = groups[i][j]._retrain_every
+                    if (r is not None and epochs[i][j] > before[i][j]
+                            and epochs[i][j] % r == 0):
+                        due[i].add(j)
+                if y_i.ovf[-1].any():
+                    overflow_pending.add(i)
         _PHASES["writeback_s"] += time.perf_counter() - t
         # online-LERN boundaries land at the super-step edge per group
         # (next_stop): run the refits and upload that group's tables; a
         # group with an unresolved overflow defers
-        refreshed = False
+        refreshed = set()
         for i in range(n_groups):
             if not live[i] or i in overflow_pending or not due[i]:
                 continue
@@ -1498,17 +1588,20 @@ def drive_lanes_bucketed(groups: List[List[Lane]], states=None,
             due[i].clear()
             t = time.perf_counter()
             staged[i].refresh_clusters(groups[i])
-            refreshed = True
+            refreshed.add(i // per)
             _PHASES["stage_s"] += time.perf_counter() - t
-        if refreshed:
-            lc = _stack_trees([s.lc for s in staged])
+        for k in refreshed:
+            sd = shards[k]
+            sd.lc = _stack_trees([s.lc for s in staged[sd.lo:sd.hi]])
     # one write-back of the carry's scalars: the histories landed super-step
     # by super-step, and demoted groups were written back at demotion
     t = time.perf_counter()
-    host_c = _numpy(carry._replace(st=None))
-    for i in range(n_groups):
-        if live[i]:
-            _write_back_carry(groups[i],
-                              _lanes_slice(host_c, i * n_l, (i + 1) * n_l),
-                              skip=[False] * n_l)
+    for sd in shards:
+        host_c = _numpy(sd.carry._replace(st=None))
+        for i in range(sd.lo, sd.hi):
+            if live[i]:
+                lo = (i - sd.lo) * n_l
+                _write_back_carry(groups[i],
+                                  _lanes_slice(host_c, lo, lo + n_l),
+                                  skip=[False] * n_l)
     _PHASES["writeback_s"] += time.perf_counter() - t

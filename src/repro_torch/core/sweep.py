@@ -19,6 +19,9 @@ x DRAM/LLC variants -- and this module batches it at two levels:
   bitwise (tests/test_torch_bucketed.py).  A bucket that fails degradably
   (an injected fault, the card out of memory) walks the ladder bucketed ->
   per-group fused -> host, recomputing the groups from fresh lanes.
+  ``devices`` shards a bucket's groups over cards as the JAX package's
+  ``shard_map`` does (``fused.shard_devices``); the results do not depend
+  on it.
 * **Across groups, across processes** ``map_points`` runs the groups in
   turn (``jobs <= 1``) or fans them over a spawn process pool of ``jobs``
   workers (``_run_pool``): retry with backoff, a respawn of the pool when
@@ -36,9 +39,6 @@ rtol 1e-6 of the host loop, so the engine is a speed switch.  The
 bucketed engine is a plan-level engine (``exp.ExecPlan``):
 ``simulate_group`` and ``map_points`` reject it as an unknown engine, as
 the JAX package's do.
-
-Not ported yet (ROADMAP.md Queue 1): sharding a bucket's groups over
-several cards (item 14b).  Asking for it raises ``NotImplementedError``.
 
 Every entry point takes ``device=`` (default: the card) for the LLC
 state and the LERN fits.  The pool's workers share the caller's device:
@@ -281,32 +281,38 @@ def _artifact_digest(batch: List[sim.Lane]) -> str:
     return h.hexdigest()
 
 
-def _staged_for(batch_list: List[List[sim.Lane]]):
+def _staged_for(batch_list: List[List[sim.Lane]],
+                devs: Optional[List[torch.device]] = None):
     """Staged device constants for one bucket slab, through the module
-    staging cache (least recently used out past ``STAGE_CACHE_CAP``).  The
-    key is everything that fixes the staged buffers: the bucket's static
-    shape, each group's point (config, mix, policy roster, params and DRAM
-    model, deadline), the slab's pads, the super-step length and round
-    capacity, the lanes' device and the digest of their trace and LERN
-    tables.  A cached entry whose tables an online-LERN retrain swapped
-    (``stale``) stages afresh."""
+    staging cache (least recently used out past ``STAGE_CACHE_CAP``), each
+    group's on its shard's device (``devs``, from ``fused.shard_devices``;
+    default: one shard on the lanes' device).  The key is everything that
+    fixes the staged buffers: the bucket's static shape, each group's
+    point (config, mix, policy roster, params and DRAM model, deadline),
+    the slab's pads, the super-step length and round capacity, the shard's
+    device and the digest of the trace and LERN tables.  A cached entry
+    whose tables an online-LERN retrain swapped (``stale``) stages
+    afresh."""
     from . import fused
     if _faults().fire("stage_evict", key=f"{len(batch_list)}g") is not None:
         # injected eviction of the staged buffers: everything stages
         # afresh from the host copies (a cost, never a different result)
         _STAGE_CACHE.clear()
     pads = fused.bucket_pads(batch_list)
+    devs = devs or [batch_list[0][0].device]
+    per = len(batch_list) // len(devs)
     staged = []
-    for batch in batch_list:
+    for i, batch in enumerate(batch_list):
         lane0 = batch[0]
+        sdev = devs[i // per]
         key = (fused.bucket_key(batch), lane0.config, lane0.mix,
                tuple(repr(lane.policy) for lane in batch),
                _params_key(lane0.p, lane0.dram), float(lane0.deadline),
                pads, fused.DEFAULT_SUPERSTEP, fused.DEFAULT_MAX_ROUNDS,
-               str(lane0.device), _artifact_digest(batch))
+               str(sdev), _artifact_digest(batch))
         hit = _STAGE_CACHE.get(key)
         if hit is None or hit.stale:
-            hit = fused.stage_group(batch, pads=pads)
+            hit = fused.stage_group(batch, pads=pads, device=sdev)
             _STAGE_CACHE[key] = hit
         _STAGE_CACHE.move_to_end(key)
         while len(_STAGE_CACHE) > STAGE_CACHE_CAP:
@@ -331,8 +337,9 @@ def _demote_batch(task, poss: List[int], dev: torch.device
                   ) -> Tuple[List[sim.Lane], str]:
     """The degrade ladder's second and third rungs: the ``poss`` lanes of
     ``task`` on the per-group fused engine, and if that fails degradably,
-    on the host loop -- each from fresh lanes, so the results are the same
-    whichever rung finishes the group."""
+    on the host loop -- each from fresh lanes on ``dev`` (the card of the
+    group's shard), so the results are the same whichever rung finishes
+    the group."""
     flt = _faults()
     from . import fused
     config, mix = task[0], task[1]
@@ -370,13 +377,17 @@ def simulate_bucket(tasks: Sequence[Tuple], devices: Optional[int] = None,
     bucketed -> per-group fused -> host from fresh lanes.  Each finished
     point is dumped to its ``paths`` entry (empty paths skip the cache)
     and, with ``task_keys``, reported done.  Staged constants ride the
-    staging cache (``_staged_for``); ``pipeline`` goes to
-    ``fused.drive_lanes_bucketed``.
+    staging cache (``_staged_for``); ``devices`` and ``pipeline`` go to
+    ``fused.drive_lanes_bucketed``: a slab's groups shard over ``devices``
+    cards (None: every visible card on ``"cuda"``, 1 on the CPU; on the
+    CPU any count is shards on the CPU), a demoted group replays on its
+    shard's card, and a ``devices`` above the visible cards raises
+    ``ValueError`` before any work.
     Returns per-task result lists in task order."""
     from . import fused
-    fused.one_card(devices)
-    flt = _faults()
     dev = _device.resolve(device)
+    fused.check_devices(devices, dev)
+    flt = _faults()
     task_lanes: List[List[sim.Lane]] = []
     task_engines: List[set] = []
     # bucket members carry (batch, task index, lane positions), so that a
@@ -404,18 +415,21 @@ def simulate_bucket(tasks: Sequence[Tuple], devices: Optional[int] = None,
         for lo in range(0, len(batch_list), BUCKET_GROUPS):
             slab = batch_list[lo:lo + BUCKET_GROUPS]
             groups = [b for b, _ti, _poss in slab]
+            devs = fused.shard_devices(len(groups), devices, dev)
             try:
                 flt.fire("bucket", key=f"{len(groups)}g")
                 fused.drive_lanes_bucketed(groups, devices=devices,
-                                           staged=_staged_for(groups),
+                                           staged=_staged_for(groups, devs),
                                            pipeline=pipeline)
             except Exception as e:
                 if not flt.degradable(e):
                     raise
                 flt.log_event("degrade", ladder="bucketed->fused",
                               groups=len(groups), error=str(e)[:200])
-                for _batch, ti, poss in slab:
-                    sel, rung = _demote_batch(tasks[ti], poss, dev)
+                per = len(groups) // len(devs)
+                for g, (_batch, ti, poss) in enumerate(slab):
+                    sel, rung = _demote_batch(tasks[ti], poss,
+                                              devs[g // per])
                     for j, lane in zip(poss, sel):
                         task_lanes[ti][j] = lane
                     task_engines[ti].add(rung)
@@ -877,13 +891,15 @@ def run_bucketed(points: Sequence[SweepPoint], max_lanes: int = MAX_LANES,
     calibrations resolved once up front, then every uncached group at once
     through ``simulate_bucket`` -- the whole sweep on the card instead of
     group by group.  ``pipeline`` goes to the bucketed engine (None =
-    ``REPRO_BUCKET_PIPELINE``); ``devices`` of None or 1 is the one card,
-    more raises ``NotImplementedError`` before any work (item 14b).
+    ``REPRO_BUCKET_PIPELINE``); ``devices`` shards each bucket's groups
+    over cards as ``simulate_bucket`` says (None: every visible card), and
+    one above the visible cards raises ``ValueError`` before any work.
     ``report`` receives per-point records and fault events.  Returns
-    results in ``points`` order, bitwise those of ``map_points``."""
+    results in ``points`` order, bitwise those of ``map_points``, whatever
+    ``devices``."""
     from . import fused
-    fused.one_card(devices)
     dev = _device.resolve(device)
+    fused.check_devices(devices, dev)
     flt = _faults()
     with flt.activate(), flt.reporting(report):
         results, tasks, task_idxs, task_keys, calib, seen_paths = \

@@ -889,16 +889,23 @@ size_t shape_bytes(const Shape& sh, int ways, int entries, int rounds) {
   return words * sizeof(int);
 }
 
+// A process may launch on several cards: what is read or set once per card
+// is kept per device (the current one, which the wrapper sets to the
+// tensors' card before every call).
+constexpr int kMaxDevices = 64;
+
+// the current device's opt-in dynamic shared memory a block
 int device_smem_optin() {
-  static int optin = 0;
-  if (optin == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-      optin = 48 * 1024;
-  }
-  return optin;
+  static int optin[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 48 * 1024;
+  if (optin[dev] == 0 &&
+      cudaDeviceGetAttribute(&optin[dev],
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    optin[dev] = 48 * 1024;
+  return optin[dev];
 }
 
 // The shape of a lane's cluster: `cluster` CTAs (0: the smallest power of
@@ -971,22 +978,31 @@ struct ClusterLaunch {
 
 template <typename Kernel>
 cudaError_t prepare(Kernel* kernel, const ClusterLaunch& cl, int* active) {
-  // the shapes checked so far (one per kernel, cluster, threads, bytes)
+  // the shapes checked so far (one per device, kernel, cluster, threads,
+  // bytes) and the kernels whose attributes are set (one per device)
   struct Checked {
+    int dev;
     const void* fn;
     int cluster, threads;
     size_t smem;
     int active;
   };
-  static Checked seen[64];
+  struct Opened {
+    int dev;
+    const void* fn;
+  };
+  static Checked seen[256];
   static int n_seen = 0;
-  static const void* opened[16];
+  static Opened opened[64];
   static int n_opened = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
   const void* fn = reinterpret_cast<const void*>(kernel);
   const int cluster = static_cast<int>(cl.attr[0].val.clusterDim.x);
   for (int i = 0; i < n_seen; ++i) {
     const Checked& c = seen[i];
-    if (c.fn == fn && c.cluster == cluster &&
+    if (c.dev == dev && c.fn == fn && c.cluster == cluster &&
         c.threads == static_cast<int>(cl.cfg.blockDim.x) &&
         c.smem == cl.cfg.dynamicSmemBytes) {
       *active = c.active;
@@ -994,8 +1010,8 @@ cudaError_t prepare(Kernel* kernel, const ClusterLaunch& cl, int* active) {
     }
   }
   bool open = false;
-  for (int i = 0; i < n_opened; ++i) open |= opened[i] == fn;
-  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < n_opened; ++i)
+    open |= opened[i].dev == dev && opened[i].fn == fn;
   if (!open) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, kernel);
@@ -1008,13 +1024,13 @@ cudaError_t prepare(Kernel* kernel, const ClusterLaunch& cl, int* active) {
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           device_smem_optin() - static_cast<int>(fa.sharedSizeBytes));
     if (e != cudaSuccess) return e;
-    if (n_opened < 16) opened[n_opened++] = fn;
+    if (n_opened < 64) opened[n_opened++] = {dev, fn};
   }
   *active = 0;
   e = cudaOccupancyMaxActiveClusters(active, kernel, &cl.cfg);
   if (e != cudaSuccess) return e;
-  if (n_seen < 64)
-    seen[n_seen++] = {fn, cluster, static_cast<int>(cl.cfg.blockDim.x),
+  if (n_seen < 256)
+    seen[n_seen++] = {dev, fn, cluster, static_cast<int>(cl.cfg.blockDim.x),
                       cl.cfg.dynamicSmemBytes, *active};
   return *active > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }

@@ -45,8 +45,13 @@ class ExecPlan:
                 else "auto")
     jobs:       process-pool width of ``sweep.map_points`` (default 1;
                 the bucketed engine ignores it)
-    devices:    cards for the bucketed engine (default None: the one
-                card; > 1 is ROADMAP.md Queue 1 item 14b and raises)
+    devices:    cards the bucketed engine shards each bucket's lane
+                groups over, as the JAX package's ``shard_map`` (default
+                None: every visible card on ``"cuda"``, 1 on the CPU; on
+                the CPU any count runs its shards on the CPU); a bucket
+                shards when the count is above 1 and divides its groups.
+                Results do not depend on it.  A count above the visible
+                cards raises ``ValueError`` before any work
     cache:      read/write the sim disk result cache (default True)
     fit_engine: "auto" | "bucketed" | "segmented" k-means fit engine
                 (default: env ``REPRO_LERN_FIT``, else "auto")
@@ -83,7 +88,7 @@ class ExecPlan:
     def resolve(self) -> "ExecPlan":
         """Fill every ``None`` field from the environment defaults,
         returning a fully-concrete plan (``"auto"`` stays ``"auto"``, and
-        ``devices`` may stay ``None``: the one card)."""
+        ``devices`` may stay ``None``: every visible card)."""
         engine = self.engine or os.environ.get("REPRO_ENGINE")
         if engine is None:
             engine = ("host" if os.environ.get("REPRO_FUSED", "1") == "0"

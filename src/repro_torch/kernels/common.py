@@ -1,6 +1,8 @@
 """Shared layout helpers for the kernel wrappers."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 # Row granularity of the flat-segmented k-means layout: every segment's
@@ -78,3 +80,13 @@ def dot_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for t in range(4, d):
         lanes[t % 4] = fma32(a[..., t], b[..., t], lanes[t % 4])
     return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def on_card(device: torch.device):
+    """``device`` as the current CUDA device (nothing off the card): a
+    ``ctypes`` entry sets its kernel's attributes, checks its shape and
+    launches on the current device, and a bucket's shard enqueues its
+    events and copies there, which a process that uses several cards must
+    not leave to chance."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())

@@ -1,6 +1,7 @@
 """ctypes binding of ``csrc/flash_attention.cu`` (built by
 ``kernels._build`` at first use): ``flash_attention_sm90``, the Hopper
-kernel for bf16, and ``flash_attention``, the CUDA-core kernel for f32."""
+kernel for bf16, and ``flash_attention``, the CUDA-core kernel for f32.
+Every launch runs with its tensors' card as the current device."""
 from __future__ import annotations
 
 import ctypes
@@ -8,6 +9,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..common import on_card
 
 # the C entry point of each kernel, by the name ops.route gives it
 _ENTRY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
@@ -45,6 +47,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out [B, Sq, H, d], k and v [B, Sk, Hkv, d], contiguous, one type (bf16
     and 16-byte aligned for "wgmma", f32 for "simt"), shapes checked by the
     caller; raise if the launch was refused."""
+    with on_card(q.device):
+        _launch(q, k, v, out, causal, kernel)
+
+
+def _launch(q, k, v, out, causal: bool, kernel: str) -> None:
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())

@@ -8,6 +8,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..common import on_card
 
 _FNS = {}
 
@@ -26,13 +27,13 @@ def _fn(name: str, n_ptr: int, n_int: int, lib: str = None):
     return fn
 
 
-def _check(name: str, err: int) -> None:
+def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
+    """``fn(*args, stream)`` on ``x``'s card, the current device there, and
+    its current stream; raise if the launch was refused."""
+    with on_card(x.device):
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def launch_segmented(x: torch.Tensor, centers: torch.Tensor,
@@ -41,9 +42,9 @@ def launch_segmented(x: torch.Tensor, centers: torch.Tensor,
     by the caller); raise if the launch was refused."""
     p, d = x.shape
     s, k, _ = centers.shape
-    _check("kmeans_assign_segmented", _fn("kmeans_assign_segmented", 4, 4)(
-        x.data_ptr(), centers.data_ptr(), seg.data_ptr(), out.data_ptr(),
-        p, s, k, d, _stream(x)))
+    _launch("kmeans_assign_segmented", _fn("kmeans_assign_segmented", 4, 4),
+            x, x.data_ptr(), centers.data_ptr(), seg.data_ptr(),
+            out.data_ptr(), p, s, k, d)
 
 
 def launch_dense(x: torch.Tensor, centers: torch.Tensor,
@@ -53,9 +54,9 @@ def launch_dense(x: torch.Tensor, centers: torch.Tensor,
     if the launch was refused."""
     b, n, d = x.shape
     k = centers.shape[1]
-    _check("kmeans_assign", _fn("kmeans_assign", 3, 5)(
-        x.data_ptr(), centers.data_ptr(), out.data_ptr(), b, n, k, d,
-        int(x.dtype == torch.bfloat16), _stream(x)))
+    _launch("kmeans_assign", _fn("kmeans_assign", 3, 5), x, x.data_ptr(),
+            centers.data_ptr(), out.data_ptr(), b, n, k, d,
+            int(x.dtype == torch.bfloat16))
 
 
 def launch_fit(x: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor,
@@ -66,9 +67,9 @@ def launch_fit(x: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor,
     launch was refused."""
     b, n, d = x.shape
     k = centers.shape[1]
-    _check("kmeans_fit", _fn("kmeans_fit", 5, 5, "kmeans_assign")(
-        x.data_ptr(), mask.data_ptr(), centers.data_ptr(), out.data_ptr(),
-        a.data_ptr(), b, n, k, d, iters, _stream(x)))
+    _launch("kmeans_fit", _fn("kmeans_fit", 5, 5, "kmeans_assign"), x,
+            x.data_ptr(), mask.data_ptr(), centers.data_ptr(),
+            out.data_ptr(), a.data_ptr(), b, n, k, d, iters)
 
 
 def launch_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
@@ -83,8 +84,8 @@ def launch_fit_segmented(x: torch.Tensor, seg: torch.Tensor,
     launch was refused."""
     p, d = x.shape
     s, k, _ = centers.shape
-    _check("kmeans_fit_segmented", _fn("kmeans_fit_segmented", 8, 6,
-                                                "kmeans_assign_segmented")(
-        x.data_ptr(), seg.data_ptr(), layout.data_ptr(), centers.data_ptr(),
-        out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(), a.data_ptr(),
-        p, s, k, d, iters, width, _stream(x)))
+    _launch("kmeans_fit_segmented", _fn("kmeans_fit_segmented", 8, 6,
+                                        "kmeans_assign_segmented"), x,
+            x.data_ptr(), seg.data_ptr(), layout.data_ptr(),
+            centers.data_ptr(), out.data_ptr(), sweeps.data_ptr(),
+            conv.data_ptr(), a.data_ptr(), p, s, k, d, iters, width)

@@ -2,7 +2,10 @@
 first use): the round loop of an epoch chunk as the cluster kernel (the
 path's, ``launch``), at a chosen shape and stage (``launch_shaped``, the
 probe's), as the first one-CTA-a-lane design (``launch_simple``, for the
-cross-check), the empty launch of that design, and the cluster's shape."""
+cross-check), the empty launch of that design, and the cluster's shape.
+Every launch runs with its tensors' card as the current device, where the
+kernel's attributes are set and its launch shape is checked (per card in
+the source)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,6 +13,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..common import on_card
 
 _FNS = {}
 # llc_rounds_cluster's out array
@@ -66,8 +70,9 @@ def launch(line, meta, knobs, n_rounds, rows, tick, shct_core, shct_accel,
     args = _args(line, meta, knobs, n_rounds, rows, tick, shct_core,
                  shct_accel, stats, percore, entries, sampler_shift,
                  region_lines, counter_max)
-    _check("llc_rounds", _fn("llc_rounds", 14, 8)(
-        *args, _stream(line.get_device())))
+    with on_card(line.device):
+        _check("llc_rounds", _fn("llc_rounds", 14, 8)(
+            *args, _stream(line.get_device())))
 
 
 def launch_simple(line, meta, knobs, n_rounds, rows, tick, shct_core,
@@ -79,8 +84,9 @@ def launch_simple(line, meta, knobs, n_rounds, rows, tick, shct_core,
     args = _args(line, meta, knobs, n_rounds, rows, tick, shct_core,
                  shct_accel, stats, percore, entries, sampler_shift,
                  region_lines, counter_max)
-    _check("llc_rounds_simple", _fn("llc_rounds_simple", 14, 8)(
-        *args, _stream(line.get_device())))
+    with on_card(line.device):
+        _check("llc_rounds_simple", _fn("llc_rounds_simple", 14, 8)(
+            *args, _stream(line.get_device())))
 
 
 def launch_shaped(line, meta, knobs, n_rounds, rows, tick, shct_core,
@@ -97,16 +103,19 @@ def launch_shaped(line, meta, knobs, n_rounds, rows, tick, shct_core,
     args = _args(line, meta, knobs, n_rounds, rows, tick, shct_core,
                  shct_accel, stats, percore, entries, sampler_shift,
                  region_lines, counter_max)
-    _check("llc_rounds_shaped", _fn("llc_rounds_shaped", 14, 11)(
-        *args, cluster, threads, stage, _stream(line.get_device())))
+    with on_card(line.device):
+        _check("llc_rounds_shaped", _fn("llc_rounds_shaped", 14, 11)(
+            *args, cluster, threads, stage, _stream(line.get_device())))
 
 
 def launch_empty(n_lanes: int, sets: int, device) -> None:
     """Enqueue the empty kernel with the launch shape of ``launch_simple``."""
     index = torch.device(device).index
-    _check("llc_rounds_empty", _fn("llc_rounds_empty", 0, 2)(
-        n_lanes, sets, _stream(torch.cuda.current_device() if index is None
-                               else index)))
+    if index is None:
+        index = torch.cuda.current_device()
+    with torch.cuda.device(index):
+        _check("llc_rounds_empty", _fn("llc_rounds_empty", 0, 2)(
+            n_lanes, sets, _stream(index)))
 
 
 def cluster_shape(sets: int, ways: int, entries: int, sampler_shift: int,

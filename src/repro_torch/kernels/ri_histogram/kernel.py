@@ -1,6 +1,7 @@
 """ctypes binding of ``csrc/ri_histogram.cu`` (built by ``kernels._build``
 at first use): the kernel, the same launch of an empty kernel (the floor
-of a call's time) and the cluster's size and fit."""
+of a call's time) and the cluster's size and fit.  Every launch runs
+with its tensors' card as the current device."""
 from __future__ import annotations
 
 import ctypes
@@ -8,6 +9,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..common import on_card
 
 _FNS = {}
 
@@ -42,17 +44,21 @@ def launch(ri: torch.Tensor, bins: torch.Tensor,
     """Enqueue the kernel on the current stream: ``ri`` and ``bins`` int32
     [N], ``counts`` int32 [4] (contiguous, checked by the caller); raise if
     the launch was refused."""
-    _check("ri_histogram", _fn("ri_histogram", 3, 1)(
-        ri.data_ptr(), bins.data_ptr(), counts.data_ptr(), ri.shape[0],
-        _stream(ri.get_device())))
+    with on_card(ri.device):
+        _check("ri_histogram", _fn("ri_histogram", 3, 1)(
+            ri.data_ptr(), bins.data_ptr(), counts.data_ptr(), ri.shape[0],
+            _stream(ri.get_device())))
 
 
 def launch_empty(device) -> None:
     """Enqueue the empty kernel, launched as ``launch`` launches the
     kernel, on the current stream of ``device``."""
     index = torch.device(device).index
-    _check("ri_histogram_empty", _fn("ri_histogram_empty", 0, 0)(_stream(
-        torch.cuda.current_device() if index is None else index)))
+    if index is None:
+        index = torch.cuda.current_device()
+    with torch.cuda.device(index):
+        _check("ri_histogram_empty", _fn("ri_histogram_empty", 0, 0)(
+            _stream(index)))
 
 
 def cluster() -> tuple:

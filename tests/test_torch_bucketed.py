@@ -17,7 +17,8 @@
   ``stage_evict``) leave the results equal; the card out of memory
   degrades, a failed kernel build or launch propagates;
 * ``exp.run`` with ``ExecPlan(engine="bucketed")`` and with the default
-  plan; ``devices > 1`` raises before any work;
+  plan; ``devices`` above the visible cards raises before any work (the
+  shards themselves: tests/test_torch_shards.py);
 * one small sweep equals the JAX package's ``sweep.run_bucketed``, run in
   the reference child of ``tests/test_torch_sim.py`` (integers bitwise,
   floats within rtol 1e-6; in practice bitwise).
@@ -29,6 +30,7 @@ counts and phase times, and sets environment variables only through
 import dataclasses
 import math
 import pickle
+import types
 
 import numpy as np
 import pytest
@@ -520,16 +522,23 @@ def test_exec_plan_bucketed_end_to_end(tmp_path, monkeypatch):
 @pytest.mark.parametrize("entry", ["drive_lanes_bucketed", "run_bucketed",
                                    "exp_run"])
 def test_devices_beyond_one_raise(tmp_path, monkeypatch, entry):
+    """``devices=2`` on a machine that shows one card (``torch.cuda``
+    patched) raises a ``ValueError`` that names both counts before
+    anything is staged, cached or launched: no fallback to fewer cards or
+    to the CPU."""
     monkeypatch.setenv("REPRO_CACHE", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    lane = types.SimpleNamespace(device=torch.device("cuda"))
     calls = {
         "drive_lanes_bucketed": lambda: fused.drive_lanes_bucketed(
-            [[object()]], devices=2),
+            [[lane]], devices=2),
         "run_bucketed": lambda: sweep.run_bucketed(
-            _bucket_points(), devices=2, device="cpu"),
+            _bucket_points(), devices=2, device="cuda"),
         "exp_run": lambda: exp.run(_spec(), plan=exp.ExecPlan(devices=2),
-                                   device="cpu"),
+                                   device="cuda"),
     }
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="devices=2: only 1 CUDA device"):
         calls[entry]()
     assert not any(tmp_path.rglob("*"))           # nothing ran
     assert not sweep._STAGE_CACHE and not any(fused.counts().values())

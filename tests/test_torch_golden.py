@@ -8,6 +8,7 @@ import importlib.util
 import json
 import os
 
+import numpy as np
 import pytest
 
 from test_torch_sim import (ROOT, SYSTEM_POLICIES, run_child,
@@ -102,11 +103,24 @@ def _chip_smoke():
 def test_lm_golden_file_is_the_reference(lm_golden):
     """The serving golden is what the JAX package computes, and its own
     flash and plain routes stay inside the gap the tolerance is built
-    on (tests/test_torch_models.py, chip_smoke.py)."""
+    on (tests/test_torch_models.py, chip_smoke.py).  The prefill digests'
+    floats and the route gap vary with the host that runs the reference
+    (up to 0.34 % of max |logit|, and a gap of 0.011701 against the
+    committed 0.011513, measured): the digests are held as the family
+    goldens' are, the regenerated gap inside the bar built on the
+    committed one; everything else is exact."""
     from test_torch_models import LOGIT_RTOL, REF_GAP
     with open(LM_GOLDEN) as f:
         committed = json.load(f)
-    assert committed == lm_golden
+    fresh, want = dict(lm_golden), dict(committed)
+    got_pre, want_pre = fresh.pop("prefill"), want.pop("prefill")
+    gap = fresh.pop("ref_gap")
+    want.pop("ref_gap")
+    assert fresh == want
+    assert sorted(got_pre) == sorted(want_pre)
+    for route, digest in want_pre.items():
+        _hold_digest(got_pre[route], digest, LOGIT_RTOL, f"prefill/{route}")
+    assert 0.0 <= gap <= LOGIT_RTOL
     assert committed["ref_gap"] <= REF_GAP
     cs = _chip_smoke()
     assert (cs.REF_GAP, cs.LOGIT_RTOL) == (REF_GAP, LOGIT_RTOL)
@@ -120,11 +134,12 @@ def test_train_golden_file_is_the_reference(tmp_path):
     chunked gap, which stays inside the gap the training tolerance is built
     on (tests/test_torch_train.py); chip_smoke.py takes its bars from it."""
     from test_torch_sim import TRAIN_GOLDEN as SPEC
-    from test_torch_train import GRAD_GAP, LOSS_GAP
+    from test_torch_train import GRAD_GAP, GRAD_RTOL, LOSS_GAP, LOSS_RTOL
     fresh = _fresh(tmp_path, "train_golden")
     with open(TRAIN_GOLDEN) as f:
         committed = json.load(f)
-    assert committed == fresh
+    _hold_train_golden(fresh, committed, _chip_smoke().train_bars(committed),
+                       {"loss": LOSS_RTOL, "grad": GRAD_RTOL})
     assert {k: committed[k] for k in SPEC} == SPEC
     assert committed["ref_gap"]["loss"] <= LOSS_GAP
     assert committed["ref_gap"]["grad"] <= GRAD_GAP
@@ -137,6 +152,45 @@ def test_train_golden_file_is_the_reference(tmp_path):
     assert cs.train_bars(committed) == {
         "loss": max(2 * committed["ref_gap"]["loss"], 1e-3),
         "grad": max(2 * committed["ref_gap"]["grad"], 2e-2)}
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return float((np.abs(got - want) / np.maximum(np.abs(want),
+                                                  1e-300)).max())
+
+
+def _hold_train_golden(fresh: dict, committed: dict, bars: dict,
+                       gap_bars: dict) -> None:
+    """The regenerated training golden against the committed one.  The
+    losses, the grad norms and the JAX package's own dense-versus-chunked
+    gaps vary with the host that runs the reference (grad norms up to
+    5.2e-4 relative, the grad gap 0.02545 against the committed 0.01642,
+    measured): losses and grad norms are held within half the bars
+    chip_smoke.py takes from the committed file (``bars``), each
+    regenerated gap inside the training tolerance built on the measured
+    ones (``gap_bars``); everything else is exact."""
+    fresh, committed = dict(fresh), dict(committed)
+    got_steps, want_steps = fresh.pop("steps_out"), committed.pop(
+        "steps_out")
+    got_norms, want_norms = fresh.pop("grad_norms"), committed.pop(
+        "grad_norms")
+    got_gap = fresh.pop("ref_gap")
+    committed.pop("ref_gap")
+    assert fresh == committed
+    assert len(got_steps) == len(want_steps)
+    for got, want in zip(got_steps, want_steps):
+        assert sorted(got) == sorted(want) and got["lr"] == want["lr"]
+        assert _rel(got["loss"], want["loss"]) <= 0.5 * bars["loss"]
+        assert _rel(got["grad_norm"], want["grad_norm"]) <= \
+            0.5 * bars["grad"]
+    assert sorted(got_norms) == sorted(want_norms)
+    for leaf, want in want_norms.items():
+        assert np.shape(got_norms[leaf]) == np.shape(want), leaf
+        assert _rel(got_norms[leaf], want) <= 0.5 * bars["grad"], leaf
+    assert sorted(got_gap) == sorted(gap_bars)
+    for k, bar in gap_bars.items():
+        assert 0.0 <= got_gap[k] <= bar, k
 
 
 @pytest.mark.usefixtures("torch_one_thread")
@@ -167,19 +221,80 @@ FAMILY_GOLDEN_FILES = {"moe_golden": "qwen2_moe_a2_7b_w1_serve.json",
                        "vlm_golden": "paligemma_3b_w1_serve.json"}
 
 
+# the logit digests' floats (prefill and decode), which depend on the host
+# the reference runs on (its CPU's XLA kernels); every other field of a
+# family golden does not
+DIGEST_FLOATS = ("lse", "max_abs", "sampled", "top8_val")
+
+
+def _top8_equal_up_to_ties(got_idx, want_idx, got_val, want_val,
+                           tol: float, where: str) -> None:
+    """A row's top-8 indices equal the committed ones, except that entries
+    whose committed values lie within ``tol`` of each other may swap, and
+    an entry may cross the eighth place at a value within ``tol`` of it."""
+    if got_idx == want_idx:
+        return
+    want_v = dict(zip(want_idx, want_val))
+    got_v = dict(zip(got_idx, got_val))
+    for i in set(want_idx) - set(got_idx):
+        assert want_v[i] - want_val[-1] <= tol, (where, "left", i)
+    for i in set(got_idx) - set(want_idx):
+        assert got_v[i] - got_val[-1] <= tol, (where, "entered", i)
+    both = [i for i in want_idx if i in got_v]
+    rank = {i: r for r, i in enumerate(i for i in got_idx if i in want_v)}
+    for a, i in enumerate(both):
+        for j in both[a + 1:]:
+            if rank[j] < rank[i]:
+                assert abs(want_v[i] - want_v[j]) <= tol, (where, i, j)
+
+
+def _hold_digest(got: dict, want: dict, bar: float, where: str) -> None:
+    """One logit digest: its floats (``DIGEST_FLOATS``) within half the
+    family bar x the committed max |logit|, its top-8 indices equal up to
+    such near ties."""
+    assert sorted(got) == sorted(want), where
+    tol = 0.5 * bar * max(want["max_abs"])
+    for k in DIGEST_FLOATS:
+        g, w = np.asarray(got[k], float), np.asarray(want[k], float)
+        assert g.shape == w.shape, (where, k)
+        assert np.abs(g - w).max() <= tol, (where, k)
+    for row, (gi, wi) in enumerate(zip(got["top8_idx"], want["top8_idx"])):
+        _top8_equal_up_to_ties(gi, wi, got["top8_val"][row],
+                               want["top8_val"][row], tol, f"{where}[{row}]")
+
+
+def _hold_family_golden(fresh: dict, committed: dict, bar: float) -> None:
+    """The regenerated golden against the committed one: every field
+    equal, except the logit digests of the prefill routes and the decode
+    steps, held by ``_hold_digest``."""
+    fresh, committed = dict(fresh), dict(committed)
+    got_pre, want_pre = fresh.pop("prefill"), committed.pop("prefill")
+    got_dec, want_dec = fresh.pop("decode"), committed.pop("decode")
+    assert fresh == committed
+    assert sorted(got_pre) == sorted(want_pre)
+    for route, want in want_pre.items():
+        _hold_digest(got_pre[route], want, bar, f"prefill/{route}")
+    assert len(got_dec) == len(want_dec)
+    for t, (got, want) in enumerate(zip(got_dec, want_dec)):
+        _hold_digest(got, want, bar, f"decode[{t}]")
+
+
 @pytest.mark.parametrize("mode", sorted(FAMILY_GOLDEN_FILES))
 def test_family_golden_file_is_the_reference(mode, tmp_path):
     """The family serving goldens (moe, ssm; hybrid, encdec, vlm) are what
     the JAX package computes (``FAMILY_GOLDENS`` of the reference child),
     with its own route gaps and, for encdec and vlm, the digest of the
     seeded frontend embeddings; chip_smoke.py phases 14g and 15g take
-    their bar from them."""
+    their bar from them.  The logit digests' floats vary with the host
+    that runs the reference (up to 0.66 % of max |logit| measured), so
+    they are held within half the family bar; everything else is exact."""
     from test_torch_models import LOGIT_RTOL
     from test_torch_sim import FAMILY_GOLDENS
     fresh = _fresh(tmp_path, mode)
     with open(os.path.join(GOLDEN_DIR, FAMILY_GOLDEN_FILES[mode])) as f:
         committed = json.load(f)
-    assert committed == fresh
+    _hold_family_golden(fresh, committed,
+                        _chip_smoke().family_bar(committed))
     spec = FAMILY_GOLDENS[mode]
     assert {k: committed[k] for k in spec} == spec
     assert committed["ref_gap"] == committed["route_gaps"]["attention"]

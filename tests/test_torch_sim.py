@@ -38,6 +38,14 @@ that child (``python tests/test_torch_sim.py <mode> <out>``):
 * ``bucketed`` -- the JAX package's ``sweep.run_bucketed`` on the
                 ``BUCKET_SWEEP`` points with the result cache off
                 (``tests/test_torch_bucketed.py``), pickled.
+* ``shards`` -- the JAX package's bucketed engine sharded over two forced
+                host devices (``XLA_FLAGS`` with
+                ``--xla_force_host_platform_device_count=2``, set by the
+                caller in this child's environment only):
+                ``fused.drive_lanes_bucketed(devices=2)`` on the
+                ``SHARD_CASES`` buckets, and ``sweep.run_bucketed`` and
+                ``exp.run`` at ``devices=2`` on the ``BUCKET_SWEEP`` points
+                (``tests/test_torch_shards.py``), pickled.
 * ``chaos``  -- the JAX package's ``sweep.map_points(jobs=1)`` on the
                 chaos suite's four tiny points (``CHAOS``; the clean
                 baseline of ``tests/test_faults.py``), from an empty cache,
@@ -183,6 +191,22 @@ BUCKET_SWEEP = dict(config="config1", mixes=("moti1", "moti2"),
 # at the tiny point
 CHAOS = dict(config="config1", mixes=("moti1", "moti2"),
              policies=("fifo-nb", "arp-cs-as"))
+# the sharded buckets of tests/test_torch_shards.py: four groups of
+# synthetic traces ((seed, lines, accesses); moti2's cores, the overflow
+# tests' params) in one bucket, two groups a shard on two devices; in
+# "hot" the first group hammers 8 lines, overflows a capacity of 32
+# escalated to a cap of 64, and leaves its shard
+SHARD_PARAMS = dict(n_inputs=1, max_epochs=12, accel_epoch_cap=400,
+                    subsample_target=50_000)
+SHARD_POLICIES = ("fifo-nb", "arp-cs-as")
+SHARD_CASES = {
+    "plain": dict(groups=((11, 4000, 1500), (12, 4000, 1500),
+                          (13, 4000, 1500), (14, 4000, 1500)),
+                  drive={}, cap=None),
+    "hot": dict(groups=((3, 8, 2000), (4, 6000, 2000), (11, 4000, 1500),
+                        (12, 4000, 1500)),
+                drive=dict(k_epochs=4, max_rounds=32), cap=64),
+}
 # fig. 17's scheduler comparison (benchmarks/fig17_ddr.py:43-47) on its
 # smoke footprint's mix, with two of its policies, at the full preset
 SCHED_CELL = dict(config="config1", mix="moti1", policies=("hydra",
@@ -301,6 +325,66 @@ def bucket_sweep_points(sim, sweep, policies):
             for name in c["policies"]]
 
 
+def bucket_sweep_spec(exp, sim):
+    """BUCKET_SWEEP as an ExperimentSpec of either package (the same
+    points, in the same order, as ``bucket_sweep_points``)."""
+    c = BUCKET_SWEEP
+    return exp.ExperimentSpec.grid(
+        config=c["config"], mix=list(c["mixes"]),
+        policy=list(c["policies"]), params=sim.SimParams(**TINY),
+        max_epochs=list(c["max_epochs"]))
+
+
+def synthetic_artifacts(sim, cores, Trace, p, seed: int, n_lines: int,
+                        length: int):
+    """A random accelerator trace of ``length`` accesses over ``n_lines``
+    lines with moti2's core streams (tests/test_fused.py's), for either
+    package."""
+    rng = np.random.default_rng(seed)
+    tr = Trace(line=rng.integers(0, n_lines, length).astype(np.int64),
+               write=rng.random(length) < 0.3,
+               cycle=np.arange(length, dtype=np.int64),
+               layer=np.zeros(length, np.int32), layer_names=["l0"],
+               compute_cycles=length)
+    profiles = [cores.PROFILES[b] for b in cores.MIXES["moti2"]]
+    est = [max(1024, cores.epoch_accesses(pr, pr.ipc0, float(p.epoch_cycles))
+               * p.max_epochs) for pr in profiles]
+    streams = [cores.generate_stream_fast(pr, est[k], k, seed=p.seed)
+               .astype(np.int64) for k, pr in enumerate(profiles)]
+    return sim.Artifacts(trace=tr, profiles=profiles, est=est,
+                         streams=streams)
+
+
+def shard_groups(sim, policies, dram, cores, Trace, case: str, **kw):
+    """Fresh lane groups of one SHARD_CASES bucket (``kw``: the port's
+    device)."""
+    p = sim.SimParams(**SHARD_PARAMS)
+    out = []
+    for seed, n_lines, length in SHARD_CASES[case]["groups"]:
+        art = synthetic_artifacts(sim, cores, Trace, p, seed, n_lines,
+                                  length)
+        out.append([sim.Lane("synthetic", "moti2", policies.get(name), p,
+                             dram.DDR3_1600, TINY_DEADLINE, art, True, **kw)
+                    for name in SHARD_POLICIES])
+    return out
+
+
+def drive_shard_case(fused, groups, case: str, devices) -> list:
+    """``fused.drive_lanes_bucketed`` on one SHARD_CASES bucket at the
+    case's super-step length, round capacity and cap; returns each group's
+    results as dicts."""
+    c = SHARD_CASES[case]
+    saved = fused.MAX_ROUNDS_CAP
+    if c["cap"]:
+        fused.MAX_ROUNDS_CAP = c["cap"]
+    try:
+        fused.drive_lanes_bucketed(groups, devices=devices, **c["drive"])
+    finally:
+        fused.MAX_ROUNDS_CAP = saved
+    return [[dataclasses.asdict(lane.result()) for lane in g]
+            for g in groups]
+
+
 def chaos_points(sim, sweep, policies, mixes=CHAOS["mixes"]):
     """The chaos suite's points (mix-major), for either package."""
     p = sim.SimParams(**TINY)
@@ -340,10 +424,12 @@ def sched_doc(exp, run, engines=SCHED_CELL["engines"]) -> dict:
         sched_dmr_delta=max(abs(v) for v in delta.values()))
 
 
-def run_child(mode: str, out: str, cache: str, timeout: float = 600):
-    """Run this file as the reference child; raise with its stderr."""
+def run_child(mode: str, out: str, cache: str, timeout: float = 600,
+              env_extra: dict = None):
+    """Run this file as the reference child (``env_extra`` added to its
+    environment only); raise with its stderr."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu", REPRO_CACHE=cache)
+               JAX_PLATFORMS="cpu", REPRO_CACHE=cache, **(env_extra or {}))
     env.pop("REPRO_DRAM", None)
     env.pop("REPRO_LERN_FIT", None)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), mode,
@@ -1125,6 +1211,30 @@ def _child_main(mode: str, out: str) -> None:
                                 cache=False)
         with open(out, "wb") as f:
             pickle.dump([dataclasses.asdict(r) for r in rs], f)
+    elif mode == "shards":
+        from repro import exp
+        from repro.core import cores, dram, fused, sweep
+        from repro.core.tracegen import Trace
+        from repro.sharding import compat
+        if len(jax.devices()) != 2:
+            raise SystemExit(f"two host devices expected: {jax.devices()}")
+        # jax 0.9 renamed shard_map's check_rep, which the reference passes
+        # (src/repro/core/fused.py:1481), to check_vma: an alias, as the
+        # x64 one above
+        compat.shard_map = lambda f, check_rep=True, **kw: jax.shard_map(
+            f, check_vma=check_rep, **kw)
+        doc = {case: drive_shard_case(fused, shard_groups(
+            sim, policies, dram, cores, Trace, case), case, 2)
+            for case in SHARD_CASES}
+        doc["run_bucketed"] = [dataclasses.asdict(r) for r in
+                               sweep.run_bucketed(bucket_sweep_points(
+                                   sim, sweep, policies), devices=2,
+                                   cache=False)]
+        doc["exp_run"] = [dataclasses.asdict(r) for r in exp.run(
+            bucket_sweep_spec(exp, sim), plan=exp.ExecPlan(
+                engine="bucketed", devices=2, cache=False)).results()]
+        with open(out, "wb") as f:
+            pickle.dump(doc, f)
     elif mode == "chaos":
         from repro.core import sweep
         rs = sweep.map_points(chaos_points(sim, sweep, policies), jobs=1)

@@ -74,6 +74,7 @@ def host_costs(hops, libs, dev, calls: int = 2000) -> dict:
     the main path's N (the device is idle or faster throughout, so the
     host's clock over many calls is the host's cost)."""
     import torch
+    from repro_torch.kernels.common import on_card
     from repro_torch.kernels.ri_histogram import kernel as hkernel
     n = 303_104
     ri = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -96,6 +97,13 @@ def host_costs(hops, libs, dev, calls: int = 2000) -> dict:
     for size, lib in libs.items():
         parts[f"empty kernel, cluster {size}, ctypes, stream given"] = (
             lambda lib=lib: lib.ri_histogram_empty(raw))
+
+    def guard():
+        with on_card(ri.device):
+            pass
+
+    parts["on_card, the device guard of every launch, entered and left"] = \
+        guard
     out = {}
     for name, fn in parts.items():
         for _ in range(50):
